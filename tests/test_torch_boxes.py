@@ -1,0 +1,97 @@
+"""yolov5_tpu_torch host code and box ops against their JAX-package originals:
+box geometry, letterbox and its inverse, the YAML graph specs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from yolov5_tpu.data.letterbox import letterbox as jax_letterbox
+from yolov5_tpu.infer import scale_boxes_np as jax_scale_boxes_np
+from yolov5_tpu.models import yolo as jax_yolo
+from yolov5_tpu.ops import boxes as jax_boxes
+from yolov5_tpu_torch.data.letterbox import letterbox, scale_boxes_np
+from yolov5_tpu_torch.models import yolo
+from yolov5_tpu_torch.ops import boxes
+
+
+def _boxes(rng, n):
+    xy = rng.uniform(0, 300, (n, 2))
+    wh = rng.uniform(1, 80, (n, 2))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def test_box_converters_and_clip(rng):
+    b = _boxes(rng, 50)
+    t = torch.from_numpy(b)
+    # elementwise f32 arithmetic in the same order: equal to the last ulp
+    for port, ref in ((boxes.xyxy2xywh, jax_boxes.xyxy2xywh),
+                      (boxes.xywh2xyxy, jax_boxes.xywh2xyxy)):
+        np.testing.assert_allclose(port(t).numpy(), np.asarray(ref(jnp.asarray(b))),
+                                   rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(boxes.clip_boxes(t, (200, 150)).numpy(),
+                                  np.asarray(jax_boxes.clip_boxes(jnp.asarray(b), (200, 150))))
+
+
+def test_box_iou(rng):
+    a, b = _boxes(rng, 40), _boxes(rng, 30)
+    got = boxes.box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = np.asarray(jax_boxes.box_iou(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)  # f32 rounding only
+
+
+def test_scale_boxes(rng):
+    b = _boxes(rng, 20)
+    for img0 in ((480, 640), (640, 320), (377, 500)):
+        got = boxes.scale_boxes((640, 640), torch.from_numpy(b), img0).numpy()
+        ref = np.asarray(jax_boxes.scale_boxes((640, 640), jnp.asarray(b), img0))
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-4)
+        np.testing.assert_array_equal(scale_boxes_np((640, 640), b, img0),
+                                      jax_scale_boxes_np((640, 640), b, img0))
+
+
+def test_make_divisible():
+    for x in (1, 7.5, 8, 16.01, 1024 * 0.25, 3 * 0.33):
+        assert boxes.make_divisible(x) == jax_boxes.make_divisible(x)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (640, 480), (640, 640), (320, 640),
+                                   (300, 500), (1000, 750)])
+@pytest.mark.parametrize("auto", [False, True])
+def test_letterbox_matches_jax(rng, shape, auto):
+    """Padding-only shapes and resizes; the numpy border equals cv2's."""
+    im = rng.integers(0, 255, (*shape, 3)).astype(np.uint8)
+    got, ratio, pad = letterbox(im, 640, auto=auto)
+    ref, ratio_r, pad_r = jax_letterbox(im, 640, auto=auto)
+    np.testing.assert_array_equal(got, ref)
+    assert (ratio, pad) == (ratio_r, pad_r)
+
+
+def test_letterbox_pad_only_needs_no_opencv(rng, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "cv2", None)  # any import of cv2 now fails
+    im = rng.integers(0, 255, (480, 640, 3)).astype(np.uint8)
+    out, _, (dw, dh) = letterbox(im, 640)
+    assert out.shape == (640, 640, 3) and (dw, dh) == (0.0, 80.0)
+    assert (out[:80] == 114).all() and (out[80:560] == im).all()
+
+
+@pytest.mark.parametrize("path", sorted(p.name for p in jax_yolo.CONFIG_DIR.glob("*.yaml")
+                                        if p.stem != "anchors"))
+def test_parse_graph_matches_jax(path):
+    """The copied parser gives the JAX package's specs for every bundled YAML."""
+    assert yolo.CONFIG_DIR.samefile(jax_yolo.CONFIG_DIR)
+    cfg = yolo.load_config(path)  # resolved against the bundled configs
+    ref_cfg = jax_yolo.load_config(path)
+    assert {k: v for k, v in cfg.items() if k != "yaml_file"} == \
+        {k: v for k, v in ref_cfg.items() if k != "yaml_file"}
+    specs, save, ch = yolo.parse_graph(cfg)
+    r_specs, r_save, r_ch = jax_yolo.parse_graph(ref_cfg)
+    assert [vars(s) for s in specs] == [vars(s) for s in r_specs]
+    assert (save, ch) == (r_save, r_ch)
+    if specs[-1].args and specs[-1].args[1]:
+        for strides in ((8, 16, 32), (32, 16, 8)):
+            assert yolo.check_anchor_order(specs[-1].args[1], strides) == \
+                jax_yolo.check_anchor_order(r_specs[-1].args[1], strides)

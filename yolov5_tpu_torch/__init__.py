@@ -1,0 +1,20 @@
+"""yolov5_tpu_torch — the PyTorch / CUDA port of yolov5_tpu.
+
+The JAX package ``yolov5_tpu`` is the reference this package is held against
+in ``tests/test_torch_*.py``. This package imports ``torch`` and never JAX:
+host code it needs is carried over as small copies, each tested equal to its
+original, and the YAML model configs are read by path from
+``yolov5_tpu/models/configs``.
+
+Subpackages
+-----------
+- ``ops``    — box math, NMS (greedy suppression kernel K1), stem conv (K2)
+- ``models`` — canonical yolov5 layers, YAML graph, weight conversion
+- ``data``   — letterbox and its inverse
+- ``infer``  — ``Detector``: uint8 batch in, padded ``Detections`` out
+
+The CUDA kernels under ``csrc/`` are built by ``_build.py`` at first use on a
+CUDA tensor; importing the package builds and loads nothing.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,177 @@
+"""The canonical yolov5 blocks as ``nn.Module``s, and the head decode.
+
+The port of the canonical path of ``yolov5_tpu/models/layers.py``: Conv
+(plain with BN, or ``fused`` with BN folded into a conv bias), Bottleneck, C3,
+SPPF, Concat, Upsample (nearest) and Detect, plus ``decode_level`` /
+``decode``. Attribute names follow the reference's torch modules, so a
+state_dict key reads ``model.{i}.cv1.conv.weight`` (OIHW).
+
+Activations are NCHW tensors in ``torch.channels_last`` memory format, whose
+storage is NHWC like the JAX package's arrays. Detect returns the JAX
+layout, (bs, ny, nx, na, no), as a view of its channels_last conv output.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yolov5_tpu_torch.ops.stem import STEM_WIDTHS, stem_conv
+
+# the reference training recipe: torch BatchNorm2d(momentum=0.03, eps=1e-3)
+BN_MOMENTUM = 0.03
+BN_EPS = 1e-3
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "relu": F.relu,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.1),
+    "hardswish": F.hardswish,
+    "mish": F.mish,
+    "identity": lambda x: x,
+}
+
+
+def autopad(k: int, p: int | None = None, d: int = 1) -> int:
+    """'same'-style pad for odd kernels."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+class Conv(nn.Module):
+    """Conv2d + BatchNorm + activation; ``fused`` means BN is folded into the
+    conv's weight and bias.
+
+    The fused 6x6/s2/p2 SiLU stem on 3 channels goes to kernel K2
+    (``ops.stem.stem_conv``), which runs its CUDA kernel on a CUDA tensor."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act="silu", fused=False):
+        super().__init__()
+        pad = autopad(k, p, d)
+        self.conv = nn.Conv2d(c1, c2, k, s, pad, groups=g, dilation=d, bias=fused)
+        self.bn = None if fused else nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = ACTIVATIONS[act]
+        self.stem = (fused and c1 == 3 and c2 in STEM_WIDTHS and k == 6 and s == 2
+                     and pad == 2 and g == 1 and d == 1 and act == "silu")
+
+    def forward(self, x):
+        if self.stem:
+            return stem_conv(x, self.conv.weight, self.conv.bias)
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.act(x)
+
+
+class Bottleneck(nn.Module):
+    """Residual bottleneck: x + cv2(cv1(x)) when shapes allow."""
+
+    def __init__(self, c1, c2, shortcut=True, g=1, e=0.5, act="silu", fused=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, fused=fused)
+        self.cv2 = Conv(c_, c2, 3, 1, g=g, act=act, fused=fused)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: cv3(cat(m(cv1(x)), cv2(x)))."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, act="silu", fused=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, fused=fused)
+        self.cv2 = Conv(c1, c_, 1, 1, act=act, fused=fused)
+        self.cv3 = Conv(2 * c_, c2, 1, 1, act=act, fused=fused)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0, act=act, fused=fused)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class SPPF(nn.Module):
+    """Fast SPP: 3 chained k=5 max pools, concatenated with their input."""
+
+    def __init__(self, c1, c2, k=5, act="silu", fused=False):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, fused=fused)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1, act=act, fused=fused)
+        self.m = nn.MaxPool2d(k, 1, k // 2)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = self.m(x)
+        y2 = self.m(y1)
+        return self.cv2(torch.cat([x, y1, y2, self.m(y2)], 1))
+
+
+class Concat(nn.Module):
+    """Concatenate along channels."""
+
+    def forward(self, xs):
+        return torch.cat(xs, 1)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsample by an integer factor."""
+
+    def __init__(self, scale=2):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+
+class Detect(nn.Module):
+    """Anchor-based detection head: one 1x1 conv per level, each output
+    returned as raw logits (bs, ny, nx, na, no)."""
+
+    def __init__(self, nc, anchors, ch):
+        super().__init__()
+        self.nc = nc
+        self.no = nc + 5
+        self.na = len(anchors[0])
+        self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+
+    def forward(self, xs):
+        outs = []
+        for conv, x in zip(self.m, xs):
+            y = conv(x)
+            b, _, ny, nx = y.shape
+            # channels_last storage is (b, ny, nx, na*no): a view, no copy
+            outs.append(y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no))
+        return outs
+
+
+def decode_level(y, anchors_px, stride, dtype=torch.float32, nc=None):
+    """Decode one raw head map (bs, ny, nx, na, no) to (bs, ny*nx*na, no):
+      xy = (2σ(t_xy) - 0.5 + grid) * stride,  wh = (2σ(t_wh))² * anchor,
+    σ on obj+cls; a tail past 5+nc (mask coefficients) stays raw."""
+    b, ny, nx, na, no = y.shape
+    sig_stop = no if nc is None else 5 + nc
+    y = y.to(dtype)
+    gy, gx = torch.meshgrid(torch.arange(ny, device=y.device),
+                            torch.arange(nx, device=y.device), indexing="ij")
+    grid = torch.stack([gx, gy], -1).to(dtype)[:, :, None, :]  # (ny, nx, 1, 2)
+    anchors_px = torch.as_tensor(anchors_px, dtype=dtype, device=y.device)[None, None]
+    xy = (torch.sigmoid(y[..., 0:2]) * 2.0 - 0.5 + grid) * stride
+    wh = (torch.sigmoid(y[..., 2:4]) * 2.0) ** 2 * anchors_px
+    pieces = [xy, wh, torch.sigmoid(y[..., 4:sig_stop])]
+    if sig_stop < no:
+        pieces.append(y[..., sig_stop:])
+    return torch.cat(pieces, -1).reshape(b, ny * nx * na, no)
+
+
+def decode(outs, anchors, strides, dtype=torch.float32, nc=None):
+    """Decode all levels and concat: list[(bs,ny,nx,na,no)] -> (bs, N, no)."""
+    return torch.cat([decode_level(y, a, s, dtype, nc=nc)
+                      for y, a, s in zip(outs, anchors, strides)], 1)

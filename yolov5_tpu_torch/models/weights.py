@@ -1,0 +1,201 @@
+"""Weight interop: BN folding, the permissive reference ``.pt`` loader, and
+the conversion from the JAX package's variables.
+
+State dicts use the reference torch key layout (``model.{i}.cv1.conv.weight``,
+OIHW), the layout ``yolov5_tpu/models/weights.py::torch_key_to_flax`` maps
+from; ``from_jax_variables`` is its inverse, so both packages can be fed the
+same weights.
+"""
+
+from __future__ import annotations
+
+import pickle
+import re
+
+import numpy as np
+import torch
+
+from yolov5_tpu_torch.models.layers import BN_EPS
+
+
+# ---------------------------------------------------------------------------
+# BN folding
+# ---------------------------------------------------------------------------
+
+def fuse_conv_bn(state_dict: dict) -> dict:
+    """Fold every ``<p>.bn.*`` into its sibling ``<p>.conv.*``:
+      w' = w * gamma / sqrt(var + eps),  b' = beta + (b - mean) * gamma / sqrt(var + eps)
+    (the math of ``yolov5_tpu.models.weights._fold``). Returns a new state
+    dict of f32 tensors with no BN entries; a dict with none is passed through."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    out = {k: v for k, v in sd.items() if ".bn." not in f".{k}"}
+    for k in list(out):
+        if not k.endswith("conv.weight") or k[:-len("conv.weight")] + "bn.weight" not in sd:
+            continue
+        p = k[:-len("conv.weight")]
+        gamma, beta = sd[p + "bn.weight"].float(), sd[p + "bn.bias"].float()
+        mean, var = sd[p + "bn.running_mean"].float(), sd[p + "bn.running_var"].float()
+        scale = gamma / torch.sqrt(var + BN_EPS)
+        out[k] = sd[k].float() * scale[:, None, None, None]
+        prior = sd[p + "conv.bias"].float() if p + "conv.bias" in sd else 0.0
+        out[p + "conv.bias"] = beta + (prior - mean) * scale
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Permissive torch .pt loading
+# ---------------------------------------------------------------------------
+
+class _Stub:
+    """Inert stand-in for any un-importable pickled class."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:
+            self.__dict__["_state"] = state
+
+    def __call__(self, *a, **k):  # some pickles call factory objects
+        return self
+
+
+def _permissive_torch_load(path):
+    """torch.load with unknown classes mapped to stubs (cpu only). Unpickling
+    can run code: load only checkpoints from a trusted source."""
+
+    class Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module.startswith(("torch", "collections", "builtins", "numpy", "argparse", "pathlib")):
+                try:
+                    return super().find_class(module, name)
+                except (ImportError, AttributeError):
+                    pass
+            return type(name, (_Stub,), {"__module__": module})
+
+    shim = type("shim", (), {"Unpickler": Unpickler, "load": None})
+    return torch.load(path, map_location="cpu", pickle_module=shim, weights_only=False)
+
+
+def _harvest_tensors(obj, prefix="", out=None, seen=None):
+    """Recursively collect tensors from stubbed nn.Module object graphs."""
+    out = {} if out is None else out
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return out
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        out[prefix.rstrip(".")] = obj.detach().float().numpy()
+        return out
+    d = getattr(obj, "__dict__", None)
+    if not isinstance(d, dict):
+        return out
+    for coll in ("_parameters", "_buffers"):
+        for k, v in (d.get(coll) or {}).items():
+            if v is not None and isinstance(v, torch.Tensor):
+                out[prefix + k] = v.detach().float().numpy()
+    for k, v in (d.get("_modules") or {}).items():
+        _harvest_tensors(v, prefix + k + ".", out, seen)
+    return out
+
+
+def load_torch_state_dict(path, prefer_ema=True):
+    """Load a reference-format checkpoint to {name: np.ndarray}: plain
+    state_dicts, {'model': module} dicts, and EMA selection."""
+    ckpt = _permissive_torch_load(path)
+    if isinstance(ckpt, dict):
+        cand = None
+        if prefer_ema and ckpt.get("ema") is not None:
+            cand = ckpt["ema"]
+        elif "model" in ckpt:
+            cand = ckpt["model"]
+        if cand is None:
+            cand = ckpt
+        if isinstance(cand, dict):  # already a state_dict
+            return {k: (v.detach().float().numpy() if isinstance(v, torch.Tensor) else v)
+                    for k, v in cand.items() if isinstance(v, torch.Tensor)}
+        return _harvest_tensors(cand)
+    return _harvest_tensors(ckpt)
+
+
+def load_weights(model: torch.nn.Module, state_dict: dict) -> list[str]:
+    """Copy every entry of ``state_dict`` whose key and shape match the
+    model's; keep the model's own value elsewhere. Returns what did not
+    match, as ``yolov5_tpu.models.weights.import_torch_weights`` does."""
+    own = model.state_dict()
+    missed = []
+    for k, v in own.items():
+        if k.endswith("num_batches_tracked"):  # BN bookkeeping, not a weight
+            continue
+        if k not in state_dict:
+            missed.append(f"missing {k}")
+            continue
+        theirs = torch.as_tensor(state_dict[k])
+        if tuple(theirs.shape) != tuple(v.shape):
+            missed.append(f"shape mismatch {k}: {tuple(theirs.shape)} vs {tuple(v.shape)}")
+            continue
+        own[k] = theirs.to(v.dtype)
+    model.load_state_dict(own)
+    return missed
+
+
+# ---------------------------------------------------------------------------
+# JAX variables -> state_dict
+# ---------------------------------------------------------------------------
+
+# (collection, flax leaf) -> torch leaf
+_LEAVES = {
+    ("params", "kernel"): "weight",
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+_INDEXED = re.compile(r"^(.+)_(\d+)$")
+
+
+def _torch_module_path(path: list[str]) -> list[str]:
+    """Flax module path -> torch module path: layers_{i} -> model.{i},
+    m_0 -> m.0, seq_{p} -> {p}."""
+    out = []
+    for j, p in enumerate(path):
+        if j == 0 and p.startswith("layers_"):
+            out += ["model", p[len("layers_"):]]
+        elif p.startswith("seq_"):
+            out.append(p[len("seq_"):])
+        elif _INDEXED.match(p):
+            out += list(_INDEXED.match(p).groups())
+        else:
+            out.append(p)
+    return out
+
+
+def from_jax_variables(variables) -> dict:
+    """The JAX package's variables ({"params": ..., "batch_stats": ...},
+    fused or not) as a state_dict of f32 tensors in the reference torch
+    layout: the inverse of ``torch_key_to_flax``, HWIO -> OIHW for conv
+    kernels, bn scale/bias/mean/var -> weight/bias/running_mean/running_var."""
+    sd = {}
+
+    def walk(coll, tree, path):
+        for name, v in tree.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(coll, v, path + [name])
+                continue
+            leaf = _LEAVES.get((coll, name))
+            if leaf is None:
+                raise ValueError(f"from_jax_variables: no torch counterpart for "
+                                 f"{coll}/{'/'.join(path + [name])}")
+            a = np.array(v, np.float32)
+            if name == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T  # HWIO -> OIHW
+            key = ".".join(_torch_module_path(path) + [leaf])
+            sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+
+    for coll in ("params", "batch_stats"):
+        if coll in variables:
+            walk(coll, variables[coll], [])
+    return sd
