@@ -12,7 +12,18 @@ Phases, one line each:
      letterboxed requests, Detector.__call__ at b32, boxes scaled back; both
      kernels' launch counters must rise, and the detections must agree with
      the same batch run through the plain versions;
-  6. times on the card (CUDA events, after warmup).
+  6. times on the card (CUDA events, after warmup);
+  7. val data: 128 BMP images (4 shapes, long side 640) of filled
+     rectangles of 3 classes, YOLO labels and a data YAML, in a temporary
+     directory;
+  8. val: eval.evaluator.run (the validation path: rect batches, multi-label
+     NMS at the 30 720 cap, native-space matching) for yolov5s at 640 px,
+     b32, bf16: (a) with the kernels, (b) through their plain versions, with
+     identical detections and mAP; (c) save_hybrid, mAP50 >= 0.99; (d)
+     save_json with COCO scoring; (e) TTA, equal to its plain twin; both
+     launch counters must rise in (a), (c), (d) and (e);
+  9. val times: the b32 and b1 speeds, K1 at the eval cap beside its plain
+     version, and the multi-label selection sort.
 Then one JSON line with each kernel's launches, error and times, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
@@ -23,16 +34,24 @@ from __future__ import annotations
 
 import contextlib
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parent
 BATCH = 32
 IMGSZ = 640
 # (h, w) of the source images: all need padding only at 640, no resize
 SOURCE_SHAPES = ((480, 640), (640, 480), (640, 640), (640, 320))
+VAL_IMAGES = 128
+# (h, w) of the val images: long side 640, so nothing is resized on the way
+VAL_SHAPES = ((480, 640), (640, 480), (640, 640), (360, 640))
+VAL_CLASSES = 3
 
 
 def _import_port():
@@ -82,6 +101,27 @@ def bf16_ulp(x):
 
     _, e = torch.frexp(x.float().abs().clamp(min=2.0 ** -126))
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@contextlib.contextmanager
+def captured_detections():
+    """Record the per-image detections (numpy rows) of every batch that
+    eval.evaluator scores while the context is open."""
+    from yolov5_tpu_torch.eval import evaluator
+
+    saved = evaluator.detections_to_numpy
+    batches = []
+
+    def record(dets):
+        rows = saved(dets)
+        batches.append(rows)
+        return rows
+
+    evaluator.detections_to_numpy = record
+    try:
+        yield batches
+    finally:
+        evaluator.detections_to_numpy = saved
 
 
 def phase_device():
@@ -328,6 +368,220 @@ def phase_times(dev, det, batch):
     return {"greedy_nms": (k1, k1_plain), "stem_conv": (k2, k2_plain)}
 
 
+def write_bmp(path, bgr):
+    """A (h, w, 3) uint8 BGR image as an uncompressed 24-bit bottom-up BMP."""
+    h, w, _ = bgr.shape
+    stride = (3 * w + 3) // 4 * 4  # rows padded to 4 bytes
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    Path(path).write_bytes(head + info + rows.tobytes())
+
+
+def phase_val_data(root):
+    """VAL_IMAGES BMPs with 1-6 filled rectangles each, on a noisy
+    background, one per cell of a 3x2 grid so that no two overlap; YOLO
+    labels and a data YAML. Returns the YAML's path."""
+    t0 = time.perf_counter()
+    root = Path(root)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    n_labels = 0
+    for i in range(VAL_IMAGES):
+        h, w = VAL_SHAPES[i % len(VAL_SHAPES)]
+        im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+        rows = []
+        for cell in rng.permutation(6)[:rng.integers(1, 7)]:
+            cw, ch = w / 3, h / 2
+            bw, bh = rng.uniform(0.3, 0.8) * cw, rng.uniform(0.3, 0.8) * ch
+            x0 = int((cell % 3) * cw + rng.uniform(0, cw - bw))
+            y0 = int((cell // 3) * ch + rng.uniform(0, ch - bh))
+            x1, y1 = x0 + int(bw), y0 + int(bh)
+            c = int(rng.integers(0, VAL_CLASSES))
+            im[y0:y1, x0:x1] = ((90, 200, 40), (230, 60, 120), (40, 120, 250))[c]
+            rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
+                        f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
+        write_bmp(root / "images" / "val" / f"{i:04d}.bmp", im)
+        (root / "labels" / "val" / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+        n_labels += len(rows)
+    data = root / "val_shapes.yaml"
+    names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
+    data.write_text(f"path: {root}\nval: images/val\nnc: {VAL_CLASSES}\nnames: [{names}]\n")
+    print(f"val data: {VAL_IMAGES} BMP images of (h, w) {VAL_SHAPES}, {n_labels} labels "
+          f"of {VAL_CLASSES} classes, in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def _same_detections(a, b):
+    """Two runs' captured detections are identical, batch by batch and
+    image by image (count, boxes, scores, classes)."""
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(p, q) for p, q in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def phase_val(dev, data, smi):
+    """eval.evaluator.run for yolov5s@640 b32 bf16, with the kernels and
+    through their plain versions; hybrid, COCO and TTA runs."""
+    import torch
+
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+
+    torch.backends.cudnn.allow_tf32 = False  # the plain stem is an f32 reference
+    kw = dict(data=str(data), weights=random_weights("yolov5s", 0), cfg="yolov5s",
+              imgsz=IMGSZ, batch_size=BATCH, half=True, device=dev, verbose=False)
+    candidates = []  # per image, the candidates (score > 0) that reach K1
+
+    def counted_plain(boxes, scores, thres, max_det):
+        candidates.extend((scores > 0).sum(1).tolist())
+        return greedy_nms_plain(boxes, scores, thres, max_det)
+
+    def kernel_run(name, **extra):
+        n0 = (stem_conv.launches, greedy_nms.launches)
+        with captured_detections() as dets:
+            res = evaluator.run(**kw, **extra)
+        rose = (stem_conv.launches - n0[0], greedy_nms.launches - n0[1])
+        if min(rose) < 1:
+            raise AssertionError(f"val run ({name}): launches rose by {rose} (stem, nms)")
+        return res, dets
+
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    a, dets_a = kernel_run("a")
+    with captured_detections() as dets_b, routed(stem_conv_plain, counted_plain):
+        b = evaluator.run(**kw)
+    n_dets = sum(len(r) for batch in dets_a for r in batch)
+    n_rows = sum(len(batch) for batch in dets_a)  # images, padding included
+    if n_dets < 1 or not candidates or min(candidates) < 1:
+        raise AssertionError(f"val (a): {n_dets} detections; candidates reaching K1 "
+                             f"per image {candidates[:8]}...")
+    if not _same_detections(dets_a, dets_b):
+        raise AssertionError("val: detections with the kernels differ from the plain run")
+    metrics = ("mp", "mr", "map50", "map")
+    if any(a[k] != b[k] for k in metrics):
+        raise AssertionError(f"val: kernels {[a[k] for k in metrics]} vs plain "
+                             f"{[b[k] for k in metrics]}")
+    print(f"val (a) kernels vs (b) plain: {a['images']} images, {n_dets} detections "
+          f"(mean {n_dets / n_rows:.1f} per image), identical; mean candidates "
+          f"reaching K1 {sum(candidates) / len(candidates):.0f} per image; "
+          + ", ".join(f"{k} {a[k]:.6f}" for k in metrics))
+
+    c, _ = kernel_run("c", save_hybrid=True)
+    if c["map50"] < 0.99:
+        raise AssertionError(f"val save_hybrid: map50 {c['map50']} < 0.99")
+    with tempfile.TemporaryDirectory() as tmp:
+        d, _ = kernel_run("d", save_json=str(Path(tmp) / "dets.json"), coco91=False)
+    if "coco" not in d:
+        raise AssertionError("val save_json: COCO scoring did not run")
+    e, dets_e = kernel_run("e", augment=True)
+    with captured_detections() as dets_e2, routed(stem_conv_plain, greedy_nms_plain):
+        evaluator.run(**kw, augment=True)
+    n_tta = sum(len(r) for batch in dets_e for r in batch)
+    if n_tta < 1 or not _same_detections(dets_e, dets_e2):
+        raise AssertionError(f"val TTA: {n_tta} detections; equal to the plain run: "
+                             f"{_same_detections(dets_e, dets_e2)}")
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    print(f"val (c) save_hybrid map50 {c['map50']:.4f} map {c['map']:.4f}; (d) COCO "
+          f"map {d['coco']['map']:.6f} map50 {d['coco']['map50']:.6f} (in-house map "
+          f"{d['map']:.6f}); (e) TTA {n_tta} detections, equal to plain, map50 "
+          f"{e['map50']:.6f}; launches over (a)-(e) {launches}; "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+    return a, launches
+
+
+def phase_val_times(dev, data, a, smi):
+    """The val path's speeds, K1 at the eval cap, and the selection sort."""
+    import torch
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.infer import Detector
+    from yolov5_tpu_torch.ops import nms as nms_mod
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.utils.general import check_dataset
+
+    weights = random_weights("yolov5s", 0)
+    run_kw = dict(weights=weights, cfg="yolov5s", imgsz=IMGSZ, half=True, device=dev,
+                  verbose=False)
+    # run (a) met each of its 4 batch shapes for the first time; a second
+    # run finds cuDNN's plans for them made
+    warm = evaluator.run(str(data), batch_size=BATCH, **run_kw)["speed_ms"]
+    for name, s in (("first run (a)", a["speed_ms"]), ("second run", warm)):
+        print(f"val times b{BATCH}, {name} (host clock, synchronised, first batch dropped): "
+              f"forward {s['forward']:.4f} ms/img, NMS {s['nms']:.4f} ms/img, host "
+              f"{s['host']:.4f} ms/img | {smi}")
+    r = evaluator.run_speed(str(data), **run_kw)
+    s1 = r["speed_ms"]
+    print(f"val times b1 (run_speed: conf 0.25, iou 0.45): forward {s1['forward']:.4f} "
+          f"ms/img, NMS {s1['nms']:.4f} ms/img, host {s1['host']:.4f} ms/img "
+          f"| {smi}")
+
+    # the largest val batch at the eval configuration, its K1 arguments captured
+    det = Detector(weights, cfg="yolov5s", imgsz=IMGSZ, half=True, device=dev)
+    split = check_dataset(str(data))["val"]
+    _, loader = create_loader(split, img_size=IMGSZ, batch_size=BATCH, rect=True,
+                              stride=max(det.stride))
+    im_np = max((b["images"] for b in loader), key=lambda x: x.shape[1] * x.shape[2])
+    images = torch.from_numpy(im_np).to(dev)
+    preds = det.forward(images)
+    kw = dict(conf_thres=0.001, iou_thres=0.6, multi_label=True, max_det=300,
+              max_nms=30720)
+    captured = {}
+
+    def capture(boxes, scores, thres, max_det):
+        captured.update(args=(boxes, scores, thres, max_det))
+        return greedy_nms(boxes, scores, thres, max_det)
+
+    with routed(nms=capture):
+        nms_mod.non_max_suppression(preds, **kw)
+    boxes, scores, thres, max_det = captured["args"]
+    k1 = cuda_ms(lambda: greedy_nms(*captured["args"]), iters=20)
+    k1_plain = cuda_ms(lambda: greedy_nms_plain(*captured["args"]), iters=2, warmup=1)
+    fwd = cuda_ms(lambda: det.forward(images), iters=10)
+    nms = cuda_ms(lambda: nms_mod.non_max_suppression(preds, **kw), iters=10)
+    flat = preds[..., 5:] * preds[..., 4:5]
+    flat = flat.reshape(flat.shape[0], -1)
+    flat = torch.where(flat > kw["conf_thres"], flat, 0.0)
+    sort = cuda_ms(lambda: nms_mod._select_k(flat, kw["max_nms"]), iters=10)
+    print(f"val times at the eval configuration, b{images.shape[0]} "
+          f"{tuple(images.shape[1:3])}: forward+decode {fwd:.3f} ms; NMS (multi-label, "
+          f"cap {kw['max_nms']}) {nms:.3f} ms ({nms / images.shape[0]:.4f} ms/img); "
+          f"selection sort of {tuple(flat.shape)} {sort:.3f} ms; K1 on "
+          f"{tuple(boxes.shape[:2])} (IoU {thres:.2f}, max_det {max_det}, "
+          f"{(scores > 0).sum(1).float().mean().item():.0f} candidates > 0 per image) "
+          f"{k1:.3f} ms vs plain {k1_plain:.3f} ms | {smi}")
+    print(profile_line(lambda: nms_mod.non_max_suppression(det.forward(images), **kw),
+                       f"val batch b{images.shape[0]} {tuple(images.shape[1:3])}", smi))
+    return k1, k1_plain
+
+
+def profile_line(fn, what, smi, iters=3):
+    """torch.profiler over ``iters`` warm calls of fn: device time by
+    kernel (the largest eight) and the device's busy share of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    parts = "; ".join(f"{e.key[:48]} {e.self_device_time_total / iters / 1e3:.3f} ms "
+                      f"x{e.count // iters}" for e in top)
+    return (f"profile, {what}, per call: wall {wall_us / iters / 1e3:.3f} ms, device busy "
+            f"{busy_us / iters / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%); {parts} | {smi}")
+
+
 def main():
     import torch
 
@@ -335,12 +589,17 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device is available")
     _import_port()
     dev = torch.device("cuda", 0)
-    phase_device()
+    smi = phase_device()
     phase_build()
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
     det, batch, launches = phase_slice(dev)
     times = phase_times(dev, det, batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
+        data = phase_val_data(root)
+        a, val_launches = phase_val(dev, data, smi)
+        phase_val_times(dev, data, a, smi)
+    launches = {k: n + val_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],

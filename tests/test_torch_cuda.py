@@ -105,3 +105,69 @@ def test_greedy_nms_kernel_rejects_what_it_cannot_take(dev):
         greedy_nms(boxes.half(), torch.zeros((1, 8), device=dev), 0.45, 10)
     with pytest.raises(ValueError, match="max_det"):
         greedy_nms(boxes, torch.zeros((1, 8), device=dev), 0.45, 5000)
+
+
+def _write_bmp(path, bgr):
+    """A (h, w, 3) uint8 BGR image as an uncompressed 24-bit bottom-up BMP."""
+    import struct
+
+    h, w, _ = bgr.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    path.write_bytes(head + info + rows.tobytes())
+
+
+def test_evaluate_kernels_equal_plain(dev, tmp_path, monkeypatch):
+    """eval.evaluator.evaluate on the card: the same detections and mAP
+    with K1/K2 as through their plain versions (yolov5n, 160 px, bf16)."""
+    import yolov5_tpu_torch.models.layers as layers_mod
+    import yolov5_tpu_torch.ops.nms as nms_mod
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.infer import Detector
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "images").mkdir()
+    (tmp_path / "labels").mkdir()
+    for i, (h, w) in enumerate([(120, 160), (160, 120), (160, 160), (90, 160)] * 2):
+        im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+        im[h // 4:h // 2, w // 4:w // 2] = 200
+        _write_bmp(tmp_path / "images" / f"{i}.bmp", im)
+        (tmp_path / "labels" / f"{i}.txt").write_text("0 0.375 0.375 0.25 0.25\n")
+    sd = DetectionModel("yolov5n").state_dict()
+    gen = torch.Generator().manual_seed(0)
+    for k, v in sd.items():  # random BN statistics, Detect biases near 0
+        if k.endswith("bn.weight") or k.endswith("running_var"):
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif k.endswith("running_mean"):
+            v.normal_(0.0, 0.2, generator=gen)
+        elif k.startswith("model.24.m.") and k.endswith("bias"):
+            v.normal_(-1.0, 0.5, generator=gen)
+    det = Detector(sd, cfg="yolov5n", imgsz=160, half=True, device=dev)
+    _, loader = create_loader(str(tmp_path / "images"), img_size=160, batch_size=4,
+                              rect=True, stride=32)
+    runs = []
+    to_numpy = evaluator.detections_to_numpy
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(layers_mod, "stem_conv", stem_conv_plain)
+            monkeypatch.setattr(nms_mod, "greedy_nms", greedy_nms_plain)
+        seen = []
+        monkeypatch.setattr(evaluator, "detections_to_numpy",
+                            lambda d, seen=seen: seen.append(to_numpy(d)) or seen[-1])
+        n = (stem_conv.launches, greedy_nms.launches)
+        res = evaluator.evaluate(det.forward, loader, dev)
+        launched = (stem_conv.launches - n[0], greedy_nms.launches - n[1])
+        assert (min(launched) > 0) != plain
+        runs.append((res, seen))
+    (a, da), (b, db) = runs
+    assert sum(len(r) for batch in da for r in batch) > 0
+    for x, y in zip(da, db):
+        for p, q in zip(x, y):
+            assert np.array_equal(p, q)
+    for k in ("mp", "mr", "map50", "map"):
+        assert a[k] == b[k]

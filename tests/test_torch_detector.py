@@ -89,7 +89,9 @@ def test_detector_cuda_without_card_raises():
 def test_port_imports_no_jax():
     """yolov5_tpu_torch and chip_smoke load neither JAX nor yolov5_tpu."""
     code = ("import sys, yolov5_tpu_torch, yolov5_tpu_torch.infer, "
-            "yolov5_tpu_torch.data.letterbox, yolov5_tpu_torch._build, chip_smoke\n"
+            "yolov5_tpu_torch.data.letterbox, yolov5_tpu_torch._build, chip_smoke, "
+            "yolov5_tpu_torch.eval.evaluator, yolov5_tpu_torch.data.dataset, "
+            "yolov5_tpu_torch.utils.checkpoint, yolov5_tpu_torch.val\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'yolov5_tpu')]\n"
             "assert not bad, bad\n")

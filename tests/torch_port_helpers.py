@@ -72,10 +72,11 @@ def assert_same_detections(a, b, atol=1e-4):
         np.testing.assert_allclose(xa[va], xb[va], atol=atol, err_msg=field)
 
 
-def assert_same_detection_sets(a, b, atol=1e-3):
+def assert_same_detection_sets(a, b, atol=1e-3, rtol=0.0):
     """Per image, the same valid count and a one-to-one match of detections
-    (same class, box and score within atol). For two packages whose scores
-    agree only to a few ulps: near-equal scores may swap places."""
+    (same class, box and score within atol + rtol·|b|). For two packages
+    whose scores agree only to a few ulps: near-equal scores may swap
+    places."""
     va, vb = to_numpy(a.valid), to_numpy(b.valid)
     assert (va == vb).all(), "valid masks differ"
     for i in range(va.shape[0]):
@@ -84,6 +85,112 @@ def assert_same_detection_sets(a, b, atol=1e-3):
                 for d, v in ((a, va), (b, vb))]
         free = np.ones(len(rows[1]), bool)
         for r in rows[0]:
-            hit = free & (rows[1][:, 5] == r[5]) & (np.abs(rows[1][:, :5] - r[:5]) <= atol).all(1)
+            close = np.abs(rows[1][:, :5] - r[:5]) <= atol + rtol * np.abs(rows[1][:, :5])
+            hit = free & (rows[1][:, 5] == r[5]) & close.all(1)
             assert hit.any(), f"image {i}: no match for detection {r}"
             free[np.flatnonzero(hit)[0]] = False
+
+
+def write_shapes_dataset(root, shapes, ext=".jpg", nc=3, seed=0, write=None):
+    """A YOLO-layout dataset under ``root``: ``images/val/{i:03d}{ext}`` of
+    the given (h, w) shapes (noise, 1-4 noisy rectangles of ``nc`` classes
+    in separate cells) and ``labels/val/{i:03d}.txt``.
+    ``write(path, bgr)`` writes an image (default ``cv2.imwrite``). Returns
+    a data dict for ``check_dataset``."""
+    from pathlib import Path
+
+    if write is None:
+        import cv2
+
+        def write(p, im):
+            assert cv2.imwrite(str(p), im)
+
+    root = Path(root)
+    (root / "images" / "val").mkdir(parents=True, exist_ok=True)
+    (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i, (h, w) in enumerate(shapes):
+        # textured everywhere: flat areas give runs of equal scores, whose
+        # order at the max_det cut is decided by float rounding
+        im = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        rows = []
+        for cell in range(int(rng.integers(1, 5))):
+            cx0, cy0 = (cell % 2) * w / 2, (cell // 2) * h / 2
+            bw, bh = rng.uniform(0.2, 0.45) * w, rng.uniform(0.2, 0.45) * h
+            x0 = int(cx0 + rng.uniform(0, w / 2 - bw))
+            y0 = int(cy0 + rng.uniform(0, h / 2 - bh))
+            x1, y1 = x0 + int(bw), y0 + int(bh)
+            c = int(rng.integers(0, nc))
+            color = np.array((60 + 60 * c, 255 - 60 * c, 40 * (c + 1)))
+            im[y0:y1, x0:x1] = (color + rng.integers(-30, 30, (y1 - y0, x1 - x0, 3))).clip(0, 255)
+            rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
+                        f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
+        write(root / "images" / "val" / f"{i:03d}{ext}", im)
+        (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root), "val": "images/val", "nc": nc,
+            "names": [f"c{j}" for j in range(nc)]}
+
+
+def yolov5n_cfg(nc=3):
+    """The yolov5n config as a dict with ``nc`` classes."""
+    import yaml
+
+    from yolov5_tpu_torch.models.yolo import CONFIG_DIR
+
+    with open(CONFIG_DIR / "yolov5n.yaml") as f:
+        return {**yaml.safe_load(f), "nc": nc}
+
+
+def random_detector_weights(cfg, seed):
+    """random_state_dict of the model of ``cfg`` with conv weights 2.5x
+    larger, so that features survive the depth and scores differ from cell
+    to cell (else a run of near-equal scores meets the max_det cut, and
+    rounding decides what is kept), and Detect biases near 0, so that NMS
+    sees real candidates at low thresholds."""
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+
+    rng = np.random.default_rng(seed)
+    sd = random_state_dict(DetectionModel(cfg), rng)
+    for k in list(sd):
+        if k.endswith("conv.weight"):
+            sd[k] = sd[k] * np.float32(2.5)
+        elif k.startswith("model.24.m.") and k.endswith("bias"):
+            sd[k] = rng.normal(-1.0, 0.5, sd[k].shape).astype(np.float32)
+    return sd
+
+
+def assert_same_rows(a, b, atol=1e-3):
+    """Two per-image lists of (n, 6) [x1, y1, x2, y2, conf, cls] detections:
+    equal counts per image and a one-to-one match (same class, box and
+    score within atol; near-equal scores may trade places)."""
+    assert len(a) == len(b)
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        assert len(ra) == len(rb), f"image {i}: {len(ra)} vs {len(rb)} detections"
+        free = np.ones(len(rb), bool)
+        for r in ra:
+            hit = free & (rb[:, 5] == r[5]) & (np.abs(rb[:, :5] - r[:5]) <= atol).all(1)
+            assert hit.any(), f"image {i}: no match for detection {r}"
+            free[np.flatnonzero(hit)[0]] = False
+
+
+def save_jax_checkpoint(cfg, path, anchors=None, ema=True, dtype=np.float32):
+    """A .ckpt written by yolov5_tpu.utils.checkpoint.save_checkpoint of
+    random weights of ``cfg`` (EMA weights different from the raw ones)."""
+    from types import SimpleNamespace
+
+    from yolov5_tpu.models import DetectionModel
+    from yolov5_tpu.models.weights import import_torch_weights
+    from yolov5_tpu.utils.checkpoint import save_checkpoint
+
+    model = DetectionModel(cfg, anchors=anchors)
+    raw, _ = import_torch_weights(model, random_detector_weights(cfg, 1))
+    avg, _ = import_torch_weights(model, random_detector_weights(cfg, 2))
+    cast = lambda t: {k: cast(v) if isinstance(v, dict) else np.asarray(v).astype(dtype)
+                      for k, v in t.items()}
+    raw, avg = cast(raw), cast(avg)
+    state = SimpleNamespace(
+        params=raw["params"], batch_stats=raw["batch_stats"], step=17, opt_state=None,
+        ema=SimpleNamespace(params=avg["params"] if ema else None,
+                            batch_stats=avg["batch_stats"] if ema else None, updates=9))
+    save_checkpoint(path, state, model, epoch=3, best_fitness=0.25)
+    return path

@@ -10,8 +10,13 @@ Subpackages
 -----------
 - ``ops``    — box math, NMS (greedy suppression kernel K1), stem conv (K2)
 - ``models`` — canonical yolov5 layers, YAML graph, weight conversion
-- ``data``   — letterbox and its inverse
-- ``infer``  — ``Detector``: uint8 batch in, padded ``Detections`` out
+- ``data``   — letterbox, image files (BMP without OpenCV), the val dataset
+  and loader
+- ``infer``  — ``Detector`` (uint8 batch in, padded ``Detections`` out;
+  decoded and TTA forwards), ``Ensemble``
+- ``eval``   — metrics, COCO scoring, the validation loop
+- ``utils``  — run directories, dataset configs, ``.ckpt`` reading
+- ``val``    — the validation CLI, ``python -m yolov5_tpu_torch.val``
 
 The CUDA kernels under ``csrc/`` are built by ``_build.py`` at first use on a
 CUDA tensor; importing the package builds and loads nothing.

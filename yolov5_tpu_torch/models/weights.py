@@ -189,7 +189,8 @@ def from_jax_variables(variables) -> dict:
             if leaf is None:
                 raise ValueError(f"from_jax_variables: no torch counterpart for "
                                  f"{coll}/{'/'.join(path + [name])}")
-            a = np.array(v, np.float32)
+            # a bfloat16 leaf of a checkpoint arrives as a torch tensor
+            a = v.float().numpy() if isinstance(v, torch.Tensor) else np.array(v, np.float32)
             if name == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T  # HWIO -> OIHW
             key = ".".join(_torch_module_path(path) + [leaf])

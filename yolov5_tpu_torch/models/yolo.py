@@ -254,11 +254,15 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
 class DetectionModel(nn.Module):
     """Detection model built from a YAML config (reference models/yolo.py)."""
 
-    def __init__(self, cfg="yolov5s", ch=3, nc=None, fused=False, seed=0):
+    def __init__(self, cfg="yolov5s", ch=3, nc=None, fused=False, seed=0, anchors=None):
+        """``anchors`` (YAML-style flat lists per level, as a checkpoint's
+        meta stores them) replace the cfg's: autoanchor may have evolved them."""
         super().__init__()
         self.cfg = load_config(cfg)
         if nc is not None and nc != self.cfg.get("nc"):
             self.cfg["nc"] = nc
+        if anchors is not None:
+            self.cfg["anchors"] = anchors
         self.nc = self.cfg["nc"]
         self.fused = fused
         self.specs, self.save, out_ch = parse_graph(self.cfg, ch)
