@@ -23,7 +23,18 @@ Phases, one line each:
      save_json with COCO scoring; (e) TTA, equal to its plain twin; both
      launch counters must rise in (a), (c), (d) and (e);
   9. val times: the b32 and b1 speeds, K1 at the eval cap beside its plain
-     version, and the multi-label selection sort.
+     version, and the multi-label selection sort;
+ 10. train data: 128 BMP train images written as the val set (4 shapes, long
+     side 640, so nothing is resized), beside it, with a train+val YAML;
+ 11. train: train.run for yolov5s at 640 px, b32, bf16 autocast, hyp
+     scratch-low (mosaic 1.0) with device augmentation and the device cache,
+     3 epochs of 4 steps, EMA validation after each: every logged loss
+     finite, both launch counters rising in each epoch's validation,
+     last.ckpt and best.ckpt written, val.run on best.ckpt giving that
+     epoch's metrics, and a run cut after epoch 2 and resumed from its
+     last.ckpt giving epoch 3's losses of the uninterrupted run;
+ 12. train times: ms per b32 step with and without device augmentation,
+     device augmentation alone, img/s, peak memory, one profiler line.
 Then one JSON line with each kernel's launches, error and times, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
@@ -52,6 +63,12 @@ VAL_IMAGES = 128
 # (h, w) of the val images: long side 640, so nothing is resized on the way
 VAL_SHAPES = ((480, 640), (640, 480), (640, 640), (360, 640))
 VAL_CLASSES = 3
+TRAIN_IMAGES = 128
+TRAIN_EPOCHS = 3
+# epoch 3's mean losses, resumed from epoch 2's last.ckpt against the
+# uninterrupted run: equal but for the card's nondeterministic float sums
+# (atomics in the backward), which four steps cannot grow past this
+RESUME_RTOL = 1e-3
 
 
 def _import_port():
@@ -379,17 +396,16 @@ def write_bmp(path, bgr):
     Path(path).write_bytes(head + info + rows.tobytes())
 
 
-def phase_val_data(root):
-    """VAL_IMAGES BMPs with 1-6 filled rectangles each, on a noisy
-    background, one per cell of a 3x2 grid so that no two overlap; YOLO
-    labels and a data YAML. Returns the YAML's path."""
-    t0 = time.perf_counter()
+def write_split(root, split, n, seed):
+    """n BMPs with 1-6 filled rectangles each, on a noisy background, one per
+    cell of a 3x2 grid so that no two overlap, and their YOLO labels, under
+    images/<split> and labels/<split>. Returns the number of labels."""
     root = Path(root)
-    (root / "images" / "val").mkdir(parents=True)
-    (root / "labels" / "val").mkdir(parents=True)
-    rng = np.random.default_rng(3)
+    (root / "images" / split).mkdir(parents=True)
+    (root / "labels" / split).mkdir(parents=True)
+    rng = np.random.default_rng(seed)
     n_labels = 0
-    for i in range(VAL_IMAGES):
+    for i in range(n):
         h, w = VAL_SHAPES[i % len(VAL_SHAPES)]
         im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
         rows = []
@@ -403,9 +419,17 @@ def phase_val_data(root):
             im[y0:y1, x0:x1] = ((90, 200, 40), (230, 60, 120), (40, 120, 250))[c]
             rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
                         f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
-        write_bmp(root / "images" / "val" / f"{i:04d}.bmp", im)
-        (root / "labels" / "val" / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+        write_bmp(root / "images" / split / f"{i:04d}.bmp", im)
+        (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
         n_labels += len(rows)
+    return n_labels
+
+
+def phase_val_data(root):
+    """The VAL_IMAGES val set and a data YAML. Returns the YAML's path."""
+    t0 = time.perf_counter()
+    root = Path(root)
+    n_labels = write_split(root, "val", VAL_IMAGES, seed=3)
     data = root / "val_shapes.yaml"
     names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
     data.write_text(f"path: {root}\nval: images/val\nnc: {VAL_CLASSES}\nnames: [{names}]\n")
@@ -559,6 +583,197 @@ def phase_val_times(dev, data, a, smi):
     return k1, k1_plain
 
 
+def phase_train_data(root):
+    """TRAIN_IMAGES train images beside the val set, and a train+val YAML."""
+    t0 = time.perf_counter()
+    root = Path(root)
+    n_labels = write_split(root, "train", TRAIN_IMAGES, seed=4)
+    data = root / "train_shapes.yaml"
+    names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
+    data.write_text(f"path: {root}\ntrain: images/train\nval: images/val\n"
+                    f"nc: {VAL_CLASSES}\nnames: [{names}]\n")
+    print(f"train data: {TRAIN_IMAGES} BMP images of (h, w) {VAL_SHAPES}, {n_labels} labels, "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+class _Cut(Exception):
+    """Stops a training run after an epoch, as an interruption would."""
+
+
+def _csv_rows(save_dir):
+    import csv
+
+    with open(Path(save_dir) / "results.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_train(dev, data, root, smi):
+    """train.run: yolov5s 640 b32 bf16, device augmentation and cache, 3
+    epochs of 4 steps with EMA validation; then val.run on best.ckpt, and a
+    run cut after epoch 2 and resumed."""
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+    from yolov5_tpu_torch.train.run import run
+    from yolov5_tpu_torch.utils.callbacks import Callbacks
+
+    counts = lambda: (stem_conv.launches, greedy_nms.launches)
+    marks = []  # (epoch, counts after training, counts after validation)
+    cb = Callbacks()
+    cb.register_action("on_train_epoch_end", callback=lambda epoch: marks.append(
+        [epoch, counts()]))
+    cb.register_action("on_fit_epoch_end", callback=lambda epoch, fitness: marks[-1].append(
+        counts()))
+    kw = dict(data=str(data), cfg="yolov5s", hyp="scratch-low", epochs=TRAIN_EPOCHS,
+              batch_size=BATCH, imgsz=IMGSZ, device_aug=True, cache="device", device=dev,
+              workers=4, project=str(Path(root) / "runs"), exist_ok=True)
+
+    # the counted run of the training path
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    best_fitness, _, save_dir = run(**kw, name="straight", callbacks=cb)
+    wall = time.perf_counter() - t0
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    rows = _csv_rows(save_dir)
+    if len(rows) != TRAIN_EPOCHS:
+        raise AssertionError(f"train: {len(rows)} epochs in results.csv")
+    losses = [[float(r[f"train/{k}"]) for k in ("box", "obj", "cls", "total")] for r in rows]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses not finite: {losses}")
+    for epoch, after_train, after_val in marks:
+        rose = [v - t for v, t in zip(after_val, after_train)]
+        if min(rose) < 1:
+            raise AssertionError(f"train: epoch {epoch} validation launched {rose} (stem, nms)")
+    for name in ("last.ckpt", "best.ckpt"):
+        if not (save_dir / name).exists():
+            raise AssertionError(f"train: {name} not written")
+    print(f"train: yolov5s {IMGSZ}px bf16 b{BATCH}, {TRAIN_EPOCHS} epochs x "
+          f"{TRAIN_IMAGES // BATCH} steps, device aug + device cache, {wall:.1f} s; "
+          f"losses (box, obj, cls, total) per epoch {np.round(losses, 5).tolist()}; "
+          f"launches in per-epoch val {[[v - t for v, t in zip(a, b)] for _, b, a in marks]} "
+          f"(stem, nms) | {smi}")
+
+    # val.run on best.ckpt gives the training-time EMA validation of its epoch
+    best_epoch = json.loads((save_dir / "best.ckpt.json").read_text())["epoch"]
+    again = evaluator.run(str(data), weights=str(save_dir / "best.ckpt"), imgsz=IMGSZ,
+                          batch_size=BATCH, half=True, rect=False, device=dev, verbose=False)
+    metrics = ("mp", "mr", "map50", "map")
+    pairs = {k: (float(rows[best_epoch][f"val/{k}"]), again[k]) for k in metrics}
+    if any(abs(a - b) > 1e-6 for a, b in pairs.values()):
+        raise AssertionError(f"train: val.run on best.ckpt {pairs} (training-time, val.run)")
+    print(f"train: val.run on best.ckpt (epoch {best_epoch + 1}, fitness {best_fitness:.6f}) "
+          f"reproduces its EMA validation: " + ", ".join(f"{k} {b:.6f}" for k, (_, b) in
+                                                           pairs.items()))
+
+    # cut after epoch 2, resume from its last.ckpt, compare epoch 3
+    def cut(epoch, fitness):
+        if epoch == 1:
+            raise _Cut
+
+    cut_cb = Callbacks()
+    cut_cb.register_action("on_fit_epoch_end", callback=cut)
+    try:
+        run(**kw, name="cut", callbacks=cut_cb)
+        raise AssertionError("train: the cut run was not cut")
+    except _Cut:
+        pass
+    cut_dir = Path(root) / "runs" / "cut"
+    run(data=str(data), resume=str(cut_dir / "last.ckpt"), project=str(Path(root) / "runs"),
+        device=dev)
+    resumed = _csv_rows(cut_dir)
+    got = [float(resumed[-1][f"train/{k}"]) for k in ("box", "obj", "cls", "total")]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[-1]))
+    print(f"train: resumed epoch 3 losses {np.round(got, 6).tolist()} vs uninterrupted "
+          f"{np.round(losses[-1], 6).tolist()}: max relative difference {rel:.3g} "
+          f"(tolerance {RESUME_RTOL})")
+    if len(resumed) != TRAIN_EPOCHS or rel > RESUME_RTOL:
+        raise AssertionError(f"train: resume differs from the uninterrupted run ({rel})")
+    return launches
+
+
+def phase_train_times(dev, data, smi):
+    """A yolov5s b32 640 train step by CUDA events: with and without device
+    augmentation, the augmentation alone; img/s, peak memory, profile."""
+    import torch
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.data.device_aug import aug_generator, device_augment, mosaic_in_batch
+    from yolov5_tpu_torch.data.device_cache import build_cache_arrays, to_device
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer, ema_update
+    from yolov5_tpu_torch.train.trainer import (GEOMETRY_KEYS, batch_stats, init_train_state,
+                                                make_train_step, scale_hyp)
+    from yolov5_tpu_torch.utils.general import check_dataset
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+
+    hyp = load_hyp("scratch-low")
+    ds, loader = create_loader(check_dataset(str(data))["train"], img_size=IMGSZ,
+                               batch_size=BATCH, augment=True, device_aug=True)
+    cache = to_device(build_cache_arrays(ds, loader.max_labels), dev)
+    model = DetectionModel("yolov5s", nc=VAL_CLASSES).to(dev).to(
+        memory_format=torch.channels_last)
+    scaled = scale_hyp(hyp, nl=3, nc=VAL_CLASSES, imgsz=IMGSZ)
+    loss_fn = ComputeLoss(model.anchors_per_stride, VAL_CLASSES, scaled)
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), scaled,
+                                              TRAIN_EPOCHS, len(loader), BATCH))
+    step = make_train_step(loss_fn, hyp, dtype=torch.bfloat16)
+    step_plain = make_train_step(loss_fn, None, dtype=torch.bfloat16)
+    idx = torch.arange(BATCH, device=dev)
+
+    def augment():
+        gen = aug_generator(0, state.step, dev)
+        b = {k: cache[k][idx] for k in ("images", "hw", "targets", "valid")}
+        im, t, v = mosaic_in_batch(b["images"], b["hw"], b["targets"], b["valid"], gen, hyp,
+                                   pool=cache, self_idx=idx)
+        return device_augment({"images": im, "targets": t, "valid": v}, gen,
+                              dict(hyp, **{k: 0.0 for k in GEOMETRY_KEYS}))
+
+    augmented = augment()
+    torch.cuda.reset_peak_memory_stats(dev)
+    aug_ms = cuda_ms(augment, iters=10)
+    with_aug = cuda_ms(lambda: step(state, {"idx": idx}, cache), iters=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    no_aug = cuda_ms(lambda: step_plain(state, augmented), iters=10, warmup=3)
+
+    # the step's parts: forward + loss + backward, and one real update of
+    # the optimizer with the EMA (an optimizer that does not accumulate)
+    params = state.opt.params
+
+    def fwd_bwd():
+        x = augmented["images"].permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            maps = model(x.contiguous(memory_format=torch.channels_last))
+        total, _ = loss_fn(maps, augmented["targets"], augmented["valid"])
+        return torch.autograd.grad(total, params)
+
+    grads = fwd_bwd()
+    fb = cuda_ms(fwd_bwd, iters=10)
+    update = Optimizer(dict(model.named_parameters()), scaled, TRAIN_EPOCHS, len(loader),
+                       BATCH, nbs=BATCH)
+
+    def opt_ema():
+        update.step(grads)
+        state.ema = ema_update(state.ema, dict(model.named_parameters()), batch_stats(model))
+
+    opt_ms = cuda_ms(opt_ema, iters=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, {"idx": idx}, cache)
+    host = (time.perf_counter() - t0) * 1e3 / 5  # enqueue time, no sync inside
+    torch.cuda.synchronize()
+    print(f"train times, yolov5s b{BATCH} {IMGSZ}px bf16 autocast (forward, backward, "
+          f"optimizer, EMA): {with_aug:.3f} ms/step with device augmentation "
+          f"({BATCH / with_aug * 1e3:.1f} img/s), {no_aug:.3f} ms/step without "
+          f"({BATCH / no_aug * 1e3:.1f} img/s); device augmentation alone {aug_ms:.3f} ms; "
+          f"forward+loss+backward {fb:.3f} ms; optimizer update + EMA {opt_ms:.3f} ms; "
+          f"host enqueue {host:.3f} ms/step; peak memory {peak / 2 ** 30:.2f} GiB | {smi}")
+    print(profile_line(lambda: step(state, {"idx": idx}, cache),
+                       f"train step b{BATCH} {IMGSZ}px with device augmentation", smi))
+
+
 def profile_line(fn, what, smi, iters=3):
     """torch.profiler over ``iters`` warm calls of fn: device time by
     kernel (the largest eight) and the device's busy share of the window."""
@@ -578,8 +793,10 @@ def profile_line(fn, what, smi, iters=3):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     parts = "; ".join(f"{e.key[:48]} {e.self_device_time_total / iters / 1e3:.3f} ms "
                       f"x{e.count // iters}" for e in top)
+    launches = sum(e.count for e in kernels) // iters
     return (f"profile, {what}, per call: wall {wall_us / iters / 1e3:.3f} ms, device busy "
-            f"{busy_us / iters / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%); {parts} | {smi}")
+            f"{busy_us / iters / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), {launches} "
+            f"kernel launches; {parts} | {smi}")
 
 
 def main():
@@ -599,7 +816,10 @@ def main():
         data = phase_val_data(root)
         a, val_launches = phase_val(dev, data, smi)
         phase_val_times(dev, data, a, smi)
-    launches = {k: n + val_launches[k] for k, n in launches.items()}
+        train_data = phase_train_data(root)
+        train_launches = phase_train(dev, train_data, root, smi)
+        phase_train_times(dev, train_data, smi)
+    launches = {k: n + val_launches[k] + train_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],

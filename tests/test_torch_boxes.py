@@ -41,6 +41,49 @@ def test_box_iou(rng):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)  # f32 rounding only
 
 
+def _xywh(rng, n):
+    return np.concatenate([rng.uniform(0, 20, (n, 2)), rng.uniform(0.5, 12, (n, 2))],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["IoU", "GIoU", "DIoU", "CIoU"])
+@pytest.mark.parametrize("xywh", [True, False])
+def test_bbox_iou_matches_jax(rng, kind, xywh):
+    """Elementwise IoU variants within 1e-6, and CIoU's gradient (alpha
+    carries none) within 1e-5."""
+    a = _xywh(rng, 64)
+    b = a + rng.normal(0, 1.5, a.shape).astype(np.float32)  # overlapping pairs
+    b[:, 2:] = np.abs(b[:, 2:]) + 0.5
+    if not xywh:  # corner boxes
+        a, b = (np.concatenate([x[:, :2], x[:, :2] + x[:, 2:]], -1) for x in (a, b))
+    flags = {kind: True} if kind != "IoU" else {}
+    got = boxes.bbox_iou(torch.from_numpy(a), torch.from_numpy(b), xywh=xywh, **flags)
+    ref = jax_boxes.bbox_iou(jnp.asarray(a), jnp.asarray(b), xywh=xywh, **flags)
+    assert got.shape == (64, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+
+    import jax
+
+    ta = torch.from_numpy(a).requires_grad_()
+    boxes.bbox_iou(ta, torch.from_numpy(b), xywh=xywh, **flags).sum().backward()
+    ga = jax.grad(lambda x: jax_boxes.bbox_iou(x, jnp.asarray(b), xywh=xywh, **flags).sum())(
+        jnp.asarray(a))
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), atol=1e-5)
+
+
+def test_bbox_ioa_wh_iou_smooth_bce(rng):
+    a, b = _boxes(rng, 20), _boxes(rng, 12)
+    np.testing.assert_allclose(boxes.bbox_ioa(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+                               np.asarray(jax_boxes.bbox_ioa(jnp.asarray(a), jnp.asarray(b))),
+                               atol=1e-6)
+    wa, wb = _xywh(rng, 20)[:, 2:], _xywh(rng, 9)[:, 2:]
+    np.testing.assert_allclose(boxes.wh_iou(torch.from_numpy(wa), torch.from_numpy(wb)).numpy(),
+                               np.asarray(jax_boxes.wh_iou(jnp.asarray(wa), jnp.asarray(wb))),
+                               atol=1e-6)
+    for eps in (0.0, 0.1, 0.3):
+        assert boxes.smooth_bce(eps) == jax_boxes.smooth_bce(eps)
+
+
 def test_scale_boxes(rng):
     b = _boxes(rng, 20)
     for img0 in ((480, 640), (640, 320), (377, 500)):

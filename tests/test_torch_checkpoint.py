@@ -158,3 +158,138 @@ def test_detector_ckpt_without_ema_and_weights_errors(tmp_path):
         Detector(str(tmp_path / "weights.onnx"))
     with pytest.raises(ValueError, match="ensemble"):
         Detector([str(path), str(path)])
+
+
+# ---------------------------------------------------------------------------
+# writing: the port's encoder, save_checkpoint and restore_train_state
+# ---------------------------------------------------------------------------
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(tree=_trees)
+def test_packb_equals_msgpack_on_random_trees(tree):
+    """Byte for byte the encoding of msgpack.packb(use_bin_type=True)."""
+    assert ckpt.packb(tree) == msgpack.packb(tree, use_bin_type=True)
+    assert ckpt.unpackb(ckpt.packb(tree)) == tree
+
+
+@pytest.mark.parametrize("n", [0, 15, 16, 31, 32, 255, 256, 65535, 65536])
+def test_packb_sized_forms(n):
+    for obj in ("é" * (n // 2) + "a" * (n % 2), bytes(range(256)) * (n // 256) + bytes(n % 256),
+                list(range(n)), {str(i): i for i in range(n)}):
+        assert ckpt.packb(obj) == msgpack.packb(obj, use_bin_type=True)
+
+
+def test_msgpack_serialize_equals_flax():
+    """Arrays of every dtype, numpy scalars and bfloat16 (a torch tensor on
+    the port's side, a jnp array on flax's) give flax's bytes, maps in
+    flax's sorted key order."""
+    tree = {"a": {n: (np.arange(6).reshape(2, 3) % 2).astype(n)
+                  for n in ("float16", "float32", "float64", "int16", "uint32", "bool")},
+            "s": np.float32(2.5), "i": np.int64(-3), "empty": np.zeros((0, 4), np.float32),
+            "n": 7, "f": 0.5, "t": "x", "none": None, "list": [1, 2.5, "a", [True, False]]}
+    bf = np.asarray([[1.5, -2.25], [3.0, 1e-3]], np.float32)
+    ours = ckpt.msgpack_serialize({**tree, "bf16": torch.from_numpy(bf).bfloat16()})
+    theirs = serialization.msgpack_serialize({**tree, "bf16": jnp.asarray(bf, jnp.bfloat16)})
+    assert ours == theirs
+    _same_tree(ckpt.msgpack_restore(ours), serialization.msgpack_restore(theirs))
+
+
+def _trained_state(seed):
+    """A port TrainState of random weights, BN statistics and EMA, with a
+    stepped optimizer."""
+    from tests.torch_port_helpers import random_detector_weights
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state
+
+    model = DetectionModel(CFG, anchors=EVOLVED)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in random_detector_weights(CFG, seed).items()}, strict=False)
+    opt = Optimizer(dict(model.named_parameters()), {"warmup_epochs": 0.0}, 3, 4, 32)
+    state = init_train_state(model, opt)
+    ema = {k: torch.from_numpy(v) for k, v in random_detector_weights(CFG, seed + 1).items()}
+    for t in (state.ema.params, state.ema.batch_stats):
+        for k in t:
+            t[k].copy_(ema[k])
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(3):
+        opt.step([torch.randn(p.shape, generator=g) * 0.01 for p in opt.params])
+    state.step = 3
+    state.ema = state.ema._replace(updates=2)
+    return state
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path):
+    """save_checkpoint's best.ckpt through yolov5_tpu's load_checkpoint: the
+    EMA weights, meta and anchors; JAX Detector and the port's Detector on
+    the file give the same raw maps (CPU, f32, within 1e-4)."""
+    from yolov5_tpu.utils.checkpoint import load_checkpoint as jax_load
+    from yolov5_tpu.utils.checkpoint import variables_from_checkpoint as jax_vars
+
+    state = _trained_state(4)
+    path = tmp_path / "best.ckpt"
+    ckpt.save_checkpoint(path, state, epoch=2, best_fitness=0.125)
+    payload, meta = jax_load(path)
+    assert meta == {**meta, "epoch": 2, "best_fitness": 0.125, "nc": 3,
+                    "format": "yolov5_tpu-ckpt-v1", "anchors": EVOLVED}
+    assert int(payload["step"]) == 3 and int(payload["ema_updates"]) == 2
+    assert "opt_state" not in payload and "torch_opt_state" not in payload
+    got = from_jax_variables(jax_vars(payload))
+    for k, v in {**state.ema.params, **state.ema.batch_stats}.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy())
+
+    jdet = JaxDetector(str(path), imgsz=64)
+    det = Detector(str(path), imgsz=64)
+    ims = np.random.default_rng(5).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
+    ref = jdet._forward_maps(jdet._flat_params, jdet._prep_images(ims))
+    for m, r in zip(det.forward_maps(ims), ref):
+        np.testing.assert_allclose(m.numpy(), np.asarray(r), atol=1e-4)
+
+
+def test_restore_train_state_round_trip(tmp_path):
+    """last.ckpt with the optimizer restores every tensor and counter."""
+    from yolov5_tpu_torch.train.trainer import batch_stats
+
+    state = _trained_state(6)
+    ckpt.save_checkpoint(tmp_path / "last.ckpt", state, epoch=1, include_opt=True)
+    payload, _ = ckpt.load_checkpoint(tmp_path / "last.ckpt")
+    fresh = _trained_state(9)
+    ckpt.restore_train_state(fresh, payload)
+    assert fresh.step == 3 and fresh.ema.updates == 2
+    for a, b in ((dict(state.model.named_parameters()), dict(fresh.model.named_parameters())),
+                 (batch_stats(state.model), batch_stats(fresh.model)),
+                 (state.ema.params, fresh.ema.params)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    # 3 micro-batches at accumulate 2: updates after the first and the third
+    assert fresh.opt.gradient_step == state.opt.gradient_step == 2
+    assert fresh.opt.mini_step == state.opt.mini_step == 0
+    for x, y in zip(state.opt.buffers["trace"], fresh.opt.buffers["trace"]):
+        assert torch.equal(x, y)
+
+    out = ckpt.strip_optimizer(tmp_path / "last.ckpt", tmp_path / "stripped.ckpt")
+    stripped, meta = ckpt.load_checkpoint(out)
+    assert "torch_opt_state" not in stripped and meta["epoch"] == -1
+
+
+def test_jax_checkpoint_restores_into_port(tmp_path):
+    """A JAX-written .ckpt (no optimizer state) restores params, BN
+    statistics, EMA and counters; one with optax state raises."""
+    from yolov5_tpu_torch.train.trainer import batch_stats
+
+    path = save_jax_checkpoint(CFG, tmp_path / "jax.ckpt", anchors=EVOLVED)
+    raw = serialization.msgpack_restore(path.read_bytes())
+    state = _trained_state(7)
+    ckpt.restore_train_state(state, ckpt.load_checkpoint(path)[0])
+    live = from_jax_variables({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+    ema = from_jax_variables({"params": raw["ema_params"], "batch_stats": raw["ema_stats"]})
+    for k, v in {**dict(state.model.named_parameters()), **batch_stats(state.model)}.items():
+        np.testing.assert_array_equal(v.detach().numpy(), live[k].numpy())
+    for k, v in {**state.ema.params, **state.ema.batch_stats}.items():
+        np.testing.assert_array_equal(v.numpy(), ema[k].numpy())
+    assert state.step == 17 and state.ema.updates == 9
+
+    payload = ckpt.load_checkpoint(path)[0]
+    payload["opt_state"] = {"0": {"count": np.int32(4)}}
+    with pytest.raises(ValueError, match="optax"):
+        ckpt.restore_train_state(state, payload)

@@ -4,6 +4,9 @@ on the card. These need a CUDA device and nvcc; elsewhere they skip.
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import csv
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -171,3 +174,122 @@ def test_evaluate_kernels_equal_plain(dev, tmp_path, monkeypatch):
             assert np.array_equal(p, q)
     for k in ("mp", "mr", "map50", "map"):
         assert a[k] == b[k]
+
+
+def test_device_augmentation_cuda_equals_cpu(dev):
+    """The augmentation cores on the card against the CPU on equal draws:
+    HSV exact, warps within 1 level, labels within 1e-4, keep masks equal."""
+    from yolov5_tpu_torch.data import device_aug as aug
+
+    rng = np.random.default_rng(1)
+    ims = torch.from_numpy(rng.integers(0, 256, (4, 96, 128, 3), dtype=np.uint8))
+    r = torch.from_numpy((rng.uniform(-1, 1, (4, 3)) * [0.015, 0.7, 0.4] + 1).astype(np.float32))
+    assert torch.equal(aug.hsv_jitter_lut(ims.to(dev), r.to(dev)).cpu(),
+                       aug.hsv_jitter_lut(ims, r))
+
+    draws = aug.draw_affine(torch.Generator().manual_seed(2), 4, 10.0, 0.1, 0.5, 3.0, 5e-4,
+                            "cpu")
+    M, s = aug.affine_from_draws(draws, 96, 128, 64, 64)
+    t = torch.from_numpy(np.concatenate([rng.integers(0, 3, (4, 5, 1)),
+                                         rng.uniform(0.2, 0.8, (4, 5, 2)),
+                                         rng.uniform(0.05, 0.4, (4, 5, 2))], -1)
+                         .astype(np.float32))
+    v = torch.ones((4, 5), dtype=torch.bool)
+    cpu = aug.warp_perspective(ims, t, v, M, s, (64, 64))
+    gpu = [x.cpu() for x in aug.warp_perspective(ims.to(dev), t.to(dev), v.to(dev), M.to(dev),
+                                                 s.to(dev), (64, 64))]
+    assert (gpu[0].int() - cpu[0].int()).abs().max() <= 1
+    torch.testing.assert_close(gpu[1], cpu[1], atol=1e-4, rtol=0)
+    assert torch.equal(gpu[2], cpu[2])
+
+    pool = torch.from_numpy(rng.integers(0, 256, (6, 64, 64, 3), dtype=np.uint8))
+    idx = torch.tensor([[0, 1, 2, 3], [4, 5, 0, 1]])
+    hw4 = torch.tensor([[[48, 64], [64, 40], [64, 64], [32, 64]]] * 2, dtype=torch.float32)
+    t4 = t[:2, None, :4].expand(2, 4, 4, 5).contiguous()
+    v4 = torch.ones((2, 4, 4), dtype=torch.bool)
+    xc, yc = torch.tensor([60.0, 70.0]), torch.tensor([66.0, 50.0])
+    Mm, sm = aug.affine_from_draws({k: x[:2] for k, x in draws.items()}, 128, 128, 64, 64)
+    args = (pool, t4, v4, idx, hw4, xc, yc, Mm, sm)
+    cpu = aug.mosaic_warp(*args)
+    gpu = [x.cpu() for x in aug.mosaic_warp(*(a.to(dev) for a in args))]
+    assert (gpu[0].int() - cpu[0].int()).abs().max() <= 1
+    torch.testing.assert_close(gpu[1], cpu[1], atol=1e-4, rtol=0)
+    assert torch.equal(gpu[2], cpu[2])
+
+
+def _shapes_set(root, n_train=8, n_val=4, s=160):
+    """A BMP train/val set of bright rectangles on dark noise, and its YAML."""
+    rng = np.random.default_rng(0)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = ((120, 160), (160, 120), (160, 160), (90, 160))[i % 4]
+            im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+            im[h // 4:h // 2, w // 4:w // 2] = 200
+            _write_bmp(root / "images" / split / f"{i}.bmp", im)
+            (root / "labels" / split / f"{i}.txt").write_text("0 0.375 0.375 0.25 0.25\n")
+    data = root / "shapes.yaml"
+    data.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: 2\n"
+                    "names: [a, b]\n")
+    return data
+
+
+def test_bf16_train_step_on_cuda(dev, tmp_path):
+    """One train step of yolov5n at 160 px, b4, bf16 autocast, device
+    augmentation from the device cache: finite loss and gradient norm,
+    float32 master weights that moved, an EMA tick."""
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.data.device_cache import build_cache_arrays, to_device
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.hyp import SCRATCH_LOW
+
+    data = _shapes_set(tmp_path)
+    ds, loader = create_loader(str(data.parent / "images" / "train"), img_size=160,
+                               batch_size=4, augment=True, device_aug=True)
+    cache = to_device(build_cache_arrays(ds, loader.max_labels), dev)
+    model = DetectionModel("yolov5n", nc=2).to(dev).to(memory_format=torch.channels_last)
+    hyp = scale_hyp(SCRATCH_LOW, nl=3, nc=2, imgsz=160)
+    opt = Optimizer(dict(model.named_parameters()), hyp, 3, 2, 64)
+    state = init_train_state(model, opt)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(ComputeLoss(model.anchors_per_stride, 2, hyp), SCRATCH_LOW,
+                           dtype=torch.bfloat16)
+    state, metrics = step(state, {"idx": torch.tensor([0, 3, 5, 7], device=dev)}, cache)
+    for k, v in metrics.items():
+        assert torch.isfinite(v).item(), k
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert any(not torch.equal(before[k], v) for k, v in model.named_parameters())
+    assert state.ema.updates == 1 and state.step == 1
+
+
+def test_train_run_validates_with_the_kernels(dev, tmp_path):
+    """train.run on the card: every epoch's EMA validation launches K2 and K1,
+    and best.ckpt re-validates to the same metrics."""
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.train.run import run
+    from yolov5_tpu_torch.utils.callbacks import Callbacks
+
+    data = _shapes_set(tmp_path)
+    counts = []
+    cb = Callbacks()
+    cb.register_action("on_train_epoch_end",
+                       callback=lambda epoch: counts.append((stem_conv.launches,
+                                                             greedy_nms.launches)))
+    cb.register_action("on_fit_epoch_end", callback=lambda epoch, fitness: counts.append(
+        (stem_conv.launches, greedy_nms.launches)))
+    _, res, save_dir = run(str(data), cfg="yolov5n", epochs=2, batch_size=4, imgsz=160,
+                           device_aug=True, device=dev, project=str(tmp_path / "runs"),
+                           name="r", callbacks=cb, workers=1)
+    for (s0, n0), (s1, n1) in zip(counts[0::2], counts[1::2]):
+        assert s1 > s0 and n1 > n0
+    again = evaluator.run(str(data), weights=str(save_dir / "best.ckpt"), imgsz=160,
+                          batch_size=4, half=True, rect=False, device=dev, verbose=False)
+    with open(save_dir / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    best_epoch = json.loads((save_dir / "best.ckpt.json").read_text())["epoch"]
+    for k in ("mp", "mr", "map50", "map"):
+        assert abs(again[k] - float(rows[best_epoch][f"val/{k}"])) <= 1e-6, k

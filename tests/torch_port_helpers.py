@@ -5,6 +5,14 @@ numpy from a seed and handed to both packages."""
 import numpy as np
 import torch
 
+# The suite runs in several pytest-xdist worker processes, and every worker
+# imports this module when it collects. With torch's default of one OpenMP
+# thread per core in each worker, the workers' threads starve each other and
+# the port's convolutions run tens of times slower than alone (a 4 s
+# training test took 281 s beside five other workers); one thread each
+# keeps every test near its serial time.
+torch.set_num_threads(1)
+
 
 def random_state_dict(module: torch.nn.Module, rng: np.random.Generator) -> dict:
     """Numpy values for every entry of ``module.state_dict()``: conv weights
@@ -91,12 +99,12 @@ def assert_same_detection_sets(a, b, atol=1e-3, rtol=0.0):
             free[np.flatnonzero(hit)[0]] = False
 
 
-def write_shapes_dataset(root, shapes, ext=".jpg", nc=3, seed=0, write=None):
-    """A YOLO-layout dataset under ``root``: ``images/val/{i:03d}{ext}`` of
-    the given (h, w) shapes (noise, 1-4 noisy rectangles of ``nc`` classes
-    in separate cells) and ``labels/val/{i:03d}.txt``.
+def write_shapes_dataset(root, shapes, ext=".jpg", nc=3, seed=0, write=None, split="val"):
+    """A YOLO-layout dataset under ``root``: ``images/{split}/{i:03d}{ext}``
+    of the given (h, w) shapes (noise, 1-4 noisy rectangles of ``nc``
+    classes in separate cells) and ``labels/{split}/{i:03d}.txt``.
     ``write(path, bgr)`` writes an image (default ``cv2.imwrite``). Returns
-    a data dict for ``check_dataset``."""
+    a data dict for ``check_dataset`` with that split as ``val``."""
     from pathlib import Path
 
     if write is None:
@@ -106,8 +114,8 @@ def write_shapes_dataset(root, shapes, ext=".jpg", nc=3, seed=0, write=None):
             assert cv2.imwrite(str(p), im)
 
     root = Path(root)
-    (root / "images" / "val").mkdir(parents=True, exist_ok=True)
-    (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    (root / "images" / split).mkdir(parents=True, exist_ok=True)
+    (root / "labels" / split).mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     for i, (h, w) in enumerate(shapes):
         # textured everywhere: flat areas give runs of equal scores, whose
@@ -125,9 +133,9 @@ def write_shapes_dataset(root, shapes, ext=".jpg", nc=3, seed=0, write=None):
             im[y0:y1, x0:x1] = (color + rng.integers(-30, 30, (y1 - y0, x1 - x0, 3))).clip(0, 255)
             rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
                         f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
-        write(root / "images" / "val" / f"{i:03d}{ext}", im)
-        (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
-    return {"path": str(root), "val": "images/val", "nc": nc,
+        write(root / "images" / split / f"{i:03d}{ext}", im)
+        (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root), "val": f"images/{split}", "nc": nc,
             "names": [f"c{j}" for j in range(nc)]}
 
 

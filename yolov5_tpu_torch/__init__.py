@@ -10,12 +10,15 @@ Subpackages
 -----------
 - ``ops``    — box math, NMS (greedy suppression kernel K1), stem conv (K2)
 - ``models`` — canonical yolov5 layers, YAML graph, weight conversion
-- ``data``   — letterbox, image files (BMP without OpenCV), the val dataset
-  and loader
+- ``data``   — letterbox, image files (BMP without OpenCV), the dataset and
+  loader, augmentation on the device, the device-resident training set
 - ``infer``  — ``Detector`` (uint8 batch in, padded ``Detections`` out;
   decoded and TTA forwards), ``Ensemble``
 - ``eval``   — metrics, COCO scoring, the validation loop
-- ``utils``  — run directories, dataset configs, ``.ckpt`` reading
+- ``train``  — assignment, loss, optimizer and EMA, the train step, the
+  training loop and its CLI, ``python -m yolov5_tpu_torch.train``
+- ``utils``  — run directories, dataset configs, ``.ckpt`` reading and
+  writing, hyperparameters, callbacks, the CSV logger, autoanchor
 - ``val``    — the validation CLI, ``python -m yolov5_tpu_torch.val``
 
 The CUDA kernels under ``csrc/`` are built by ``_build.py`` at first use on a

@@ -1,17 +1,22 @@
-"""YOLO-format dataset and fixed-shape batch loader, validation side.
+"""YOLO-format dataset and fixed-shape batch loader.
 
-The port of the non-augmenting half of ``yolov5_tpu/data/dataset.py``:
+The port of ``yolov5_tpu/data/dataset.py`` without its host augmentation:
 image discovery, label parsing and verification, the hash-keyed label
-cache, ``YOLODataset`` without augmentation, and a ``Loader`` that yields
-either rect batches (aspect-sorted, per-batch shapes) or square letterboxed
-batches, with the final batch padded. Each batch is a dict of numpy arrays:
-``images`` (bs, h, w, 3) uint8 RGB, ``targets`` (bs, max_labels, 5)
-[cls, x, y, w, h] normalized to the batch frame, ``valid`` (bs, max_labels),
-``real`` (images that are not padding), ``indices`` and ``paths``.
+cache, ``YOLODataset``, and a ``Loader`` that yields rect batches
+(aspect-sorted, per-batch shapes), square letterboxed batches, or, for
+training with device augmentation, raw batches (each image resized long
+side = img_size into the top-left of its buffer) in a seeded per-epoch
+shuffle. Each batch is a dict of numpy arrays: ``images`` (bs, h, w, 3)
+uint8 RGB, ``targets`` (bs, max_labels, 5) [cls, x, y, w, h] normalized to
+the batch frame (raw batches: to the image content, with ``hw`` its size),
+``valid`` (bs, max_labels), ``real`` (images that are not padding),
+``indices`` and ``paths``.
 
 Images are read by ``data.imageio``: 24-bit BMP with numpy, anything else
-with OpenCV. Mosaic, the augmentation stack, quad batches and worker
-processes belong to training and are not ported yet.
+with OpenCV. Training augments on the device (``data.device_aug``); the host
+augmentation stack (``yolov5_tpu/data/augment.py``, ``load_mosaic``, the
+worker processes, quad batches) is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -186,13 +191,22 @@ def load_or_build_label_cache(im_files, label_files, workers=8):
 
 
 class YOLODataset:
-    """Index-addressable validation dataset: letterboxed uint8 BGR images
-    and their labels (normalized xywh). ``cache``: None, "ram" (decoded
-    images kept in memory) or "disk" (a ``.npy`` of the decoded pixels beside
-    each image, read back with numpy)."""
+    """Index-addressable dataset: letterboxed uint8 BGR images and their
+    labels (normalized xywh). ``cache``: None, "ram" (decoded images kept in
+    memory) or "disk" (a ``.npy`` of the decoded pixels beside each image,
+    read back with numpy). ``augment`` marks a training set, which resizes
+    with linear interpolation; its augmentation runs on the device
+    (``device_aug=True``): the host path is not ported."""
 
-    def __init__(self, path, img_size=640, single_cls=False, cache=None):
+    def __init__(self, path, img_size=640, single_cls=False, cache=None, augment=False,
+                 device_aug=False):
+        if augment and not device_aug:
+            raise NotImplementedError(
+                "augmented loaders need device_aug=True: host-side augmentation "
+                "(yolov5_tpu/data/augment.py: load_mosaic, the augment stack, worker "
+                "processes) is not ported")
         self.img_size = img_size
+        self.augment = augment
         self.cache = cache
         self._ram: dict = {}
         self.single_cls = single_cls
@@ -247,7 +261,7 @@ class YOLODataset:
         if r != 1:
             import cv2
 
-            interp = cv2.INTER_LINEAR if r > 1 else cv2.INTER_AREA
+            interp = cv2.INTER_LINEAR if (self.augment or r > 1) else cv2.INTER_AREA
             im = cv2.resize(im, (math.ceil(w0 * r), math.ceil(h0 * r)), interpolation=interp)
         if self.cache == "ram":
             self._ram[i] = (im.copy(), (h0, w0), im.shape[:2])
@@ -308,25 +322,66 @@ def rect_batch_shapes(shapes, batch_size, img_size, stride=32, pad=0.5,
     return order, out_shapes
 
 
+def raw_batch(ds: YOLODataset, chunk, max_labels):
+    """The images ``chunk`` of ``ds`` as the device mosaic takes them: each
+    resized long side = s into the top-left of an s x s buffer of 114 (RGB),
+    ``hw`` the content sizes, labels normalized to the content and padded to
+    ``max_labels``."""
+    s = ds.img_size
+    bs = len(chunk)
+    images = np.full((bs, s, s, 3), 114, np.uint8)
+    hw = np.zeros((bs, 2), np.int32)
+    targets = np.zeros((bs, max_labels, 5), np.float32)
+    valid = np.zeros((bs, max_labels), bool)
+    for b, i in enumerate(chunk):
+        im, _, (h, w) = ds.load_image(int(i))
+        images[b, :h, :w] = im[..., ::-1]  # BGR -> RGB
+        hw[b] = (h, w)
+        lab = ds.labels[int(i)]
+        n = min(len(lab), max_labels)
+        if n:
+            targets[b, :n] = lab[:n]
+            valid[b, :n] = True
+    return {"images": images, "hw": hw, "targets": targets, "valid": valid}
+
+
 class Loader:
-    """Fixed-shape batches over a ``YOLODataset`` in index order: rect
-    (aspect-sorted, per-batch shape) or square (img_size²). The final
-    partial batch is padded with copies of its last image; ``real`` counts
-    the others."""
+    """Fixed-shape batches over a ``YOLODataset``: rect (aspect-sorted,
+    per-batch shape) or square (img_size²) for validation, in index order,
+    the final partial batch padded with copies of its last image (``real``
+    counts the others); for a training set (``augment``), ``raw_batch``es
+    for the device mosaic in a permutation seeded by (seed + epoch), the JAX
+    package's order for the same seed, the final partial batch dropped."""
 
     def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128,
-                 workers=8, rect=False, stride=32, pad=0.5):
+                 workers=8, rect=False, stride=32, pad=0.5, seed=0):
         self.ds = dataset
         self.bs = batch_size
+        if max_labels in (None, "auto"):
+            # the label capacity of the dataset's busiest image, in 8s
+            most = max((len(lb) for lb in dataset.labels), default=1)
+            max_labels = max(8, int(math.ceil(most / 8) * 8))
         self.max_labels = max_labels
         self.workers = max(1, min(workers, os.cpu_count() or 1))
-        self.rect = rect
+        self.rect = rect and not dataset.augment
         self.stride = stride
         self.pad = pad
+        self.seed = seed
+        self.epoch = 0
         self._rect_plan = None
 
     def __len__(self):
-        return math.ceil(len(self.ds) / self.bs)
+        n = len(self.ds)
+        return n // self.bs if self.ds.augment else math.ceil(n / self.bs)
+
+    def _indices(self, epoch):
+        idx = np.arange(len(self.ds))
+        if self.ds.augment:
+            idx = np.random.default_rng(self.seed + epoch).permutation(idx)
+        return idx
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
 
     def _pad_chunk(self, chunk):
         chunk = [int(i) for i in chunk]
@@ -397,13 +452,16 @@ class Loader:
         if self.rect:
             yield from self._rect_iter()
             return
+        idx = self._indices(self.epoch)
         with ThreadPoolExecutor(self.workers) as pool:
             for bi in range(len(self)):
-                chunk, real = self._pad_chunk(range(bi * self.bs,
-                                                    min((bi + 1) * self.bs, len(self.ds))))
-                samples = list(pool.map(self.ds.get_item, chunk[:real]))
-                samples += [samples[-1]] * (self.bs - real)
-                batch = self._collate(samples)
+                chunk, real = self._pad_chunk(idx[bi * self.bs:(bi + 1) * self.bs])
+                if self.ds.augment:
+                    batch = raw_batch(self.ds, chunk, self.max_labels)
+                else:
+                    samples = list(pool.map(self.ds.get_item, chunk[:real]))
+                    samples += [samples[-1]] * (self.bs - real)
+                    batch = self._collate(samples)
                 batch["real"] = real
                 batch["paths"] = [self.ds.im_files[i] for i in chunk]
                 batch["indices"] = np.asarray(chunk, np.int64)
@@ -411,13 +469,14 @@ class Loader:
 
 
 def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=128,
-                  workers=8, single_cls=False, cache=None, rect=False, stride=32,
-                  pad=0.5):
+                  workers=8, seed=0, single_cls=False, cache=None, device_aug=False,
+                  rect=False, stride=32, pad=0.5):
     """Dataset + loader in one call (reference create_dataloader,
-    utils/dataloaders.py:106-164), for validation: every image is seen once
-    and the final batch is padded, not dropped."""
-    if augment:
-        raise NotImplementedError("augmented (training) loaders are not ported yet")
-    ds = YOLODataset(path, img_size=img_size, single_cls=single_cls, cache=cache or None)
+    utils/dataloaders.py:106-164). Validation (augment False) sees every
+    image once and pads the final batch; training (augment True, which
+    needs device_aug) shuffles raw batches and drops the final partial
+    batch."""
+    ds = YOLODataset(path, img_size=img_size, single_cls=single_cls, cache=cache or None,
+                     augment=augment, device_aug=device_aug)
     return ds, Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
-                      rect=rect, stride=stride, pad=pad)
+                      rect=rect, stride=stride, pad=pad, seed=seed)

@@ -8,7 +8,12 @@ state_dict key reads ``model.{i}.cv1.conv.weight`` (OIHW).
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, whose
 storage is NHWC like the JAX package's arrays. Detect returns the JAX
-layout, (bs, ny, nx, na, no), as a view of its channels_last conv output.
+layout, (bs, ny, nx, na, no), as a view of its channels_last conv output,
+in training and in inference alike: the loss reads the raw maps.
+
+In train mode BN follows flax, not ``torch.nn.BatchNorm2d``: it normalizes
+with the batch's biased variance and moves the running variance with that
+same biased variance (``batch_norm_train``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,20 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+def batch_norm_train(x, bn: nn.BatchNorm2d):
+    """Train-mode batch norm as flax computes it: normalize by the batch mean
+    and biased variance, and move the running statistics toward the batch
+    mean and the BIASED variance (torch's BatchNorm2d moves the running
+    variance toward the unbiased one, n/(n-1) larger). The statistics are
+    float32 whatever x's dtype; the output has x's dtype."""
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1 - m).add_(var, alpha=m)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
 class Conv(nn.Module):
     """Conv2d + BatchNorm + activation; ``fused`` means BN is folded into the
     conv's weight and bias.
@@ -61,7 +80,7 @@ class Conv(nn.Module):
             return stem_conv(x, self.conv.weight, self.conv.bias)
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = batch_norm_train(x, self.bn) if self.training else self.bn(x)
         return self.act(x)
 
 

@@ -1,10 +1,11 @@
 """Weight interop: BN folding, the permissive reference ``.pt`` loader, and
-the conversion from the JAX package's variables.
+the conversions from and to the JAX package's variables.
 
 State dicts use the reference torch key layout (``model.{i}.cv1.conv.weight``,
 OIHW), the layout ``yolov5_tpu/models/weights.py::torch_key_to_flax`` maps
-from; ``from_jax_variables`` is its inverse, so both packages can be fed the
-same weights.
+from; ``from_jax_variables`` is its inverse and ``to_jax_variables`` the
+inverse of that, so both packages can be fed the same weights and the
+checkpoint writer can write the JAX layout.
 """
 
 from __future__ import annotations
@@ -200,3 +201,63 @@ def from_jax_variables(variables) -> dict:
         if coll in variables:
             walk(coll, variables[coll], [])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# state_dict -> JAX variables
+# ---------------------------------------------------------------------------
+
+def torch_key_to_flax(key: str):
+    """One state_dict key -> (collection, flax path list), or None for keys
+    with no flax counterpart (num_batches_tracked). A copy of the mapping of
+    ``yolov5_tpu.models.weights.torch_key_to_flax`` for the layers the port
+    has: model.{i} -> layers_{i}, m.0 -> m_0."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    parts = key.split(".")
+    if parts[0] == "model":
+        parts = parts[1:]
+    out = []
+    i = 0
+    if parts and parts[0].isdigit():
+        out.append(f"layers_{parts[0]}")
+        i = 1
+    leaf, mids = parts[-1], parts[i:-1]
+    j = 0
+    while j < len(mids):
+        if j + 1 < len(mids) and mids[j + 1].isdigit():  # m.0 -> m_0
+            out.append(f"{mids[j]}_{mids[j + 1]}")
+            j += 2
+        else:
+            out.append(f"seq_{mids[j]}" if mids[j].isdigit() else mids[j])
+            j += 1
+    bn = bool(out) and (out[-1] == "bn" or out[-1].endswith("_bn"))
+    leaves = {"weight": ("params", "scale" if bn else "kernel"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+    if leaf not in leaves:
+        return None
+    coll, name = leaves[leaf]
+    return coll, out + [name]
+
+
+def to_jax_variables(state_dict: dict) -> dict:
+    """A state_dict in the reference torch layout as the JAX package's
+    variables, {"params": ..., "batch_stats": ...} of nested dicts of f32
+    numpy arrays: the inverse of ``from_jax_variables`` (OIHW -> HWIO)."""
+    out = {"params": {}, "batch_stats": {}}
+    for k, v in state_dict.items():
+        m = torch_key_to_flax(k)
+        if m is None:
+            continue
+        coll, path = m
+        a = v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(
+            v, np.float32)
+        if path[-1] == "kernel" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = out[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

@@ -285,6 +285,13 @@ class DetectionModel(nn.Module):
         self._init_detect_biases()
         self.names = self.cfg.get("names") or {i: f"class{i}" for i in range(self.nc)}
 
+    @property
+    def anchors_per_stride(self):
+        """The anchors in stride units, for the loss (the reference keeps
+        anchors /= stride, models/yolo.py:250)."""
+        return tuple(tuple((aw / s, ah / s) for aw, ah in lvl)
+                     for lvl, s in zip(self.anchors, self.stride))
+
     def _init_detect_biases(self):
         """Focal-style prior on the Detect biases: obj ~ log(8 / (640/s)²),
         cls ~ log(0.6 / (nc - 0.99999))."""

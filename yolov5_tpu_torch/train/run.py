@@ -1,0 +1,286 @@
+"""The detection training loop: ``run(**kwargs)``, the port of
+``yolov5_tpu/train/run.py`` (the reference's train.py:105-528) on one
+explicit device.
+
+The training set is decoded once and kept in device memory when it fits
+(``data.device_cache``), else streamed as raw batches; mosaic, geometry,
+HSV and flips run on the device (``device_aug``). The model trains in bf16
+autocast with float32 master weights. After each epoch the EMA weights,
+with BN folded, are validated through ``eval.evaluator.evaluate`` (the stem
+kernel K2 and the suppression kernel K1 on CUDA). ``last.ckpt`` keeps the
+optimizer state for ``--resume``; ``best.ckpt`` does not. Both are in the
+JAX package's format.
+
+Not ported, and raising ``NotImplementedError``: host augmentation (the run
+needs ``device_aug``), ``rect``, ``quad``, ``multi_scale``,
+``image_weights``, the cloud loggers (``upload_dataset``) and cloud
+resumes. Plots are not written.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import yaml
+
+from yolov5_tpu_torch.data.dataset import create_loader
+from yolov5_tpu_torch.data.device_cache import (build_cache_arrays, cache_nbytes,
+                                                device_memory_budget, index_batches, to_device)
+from yolov5_tpu_torch.eval.evaluator import evaluate
+from yolov5_tpu_torch.infer import Detector
+from yolov5_tpu_torch.models.weights import from_jax_variables, load_torch_state_dict, load_weights
+from yolov5_tpu_torch.models.yolo import DetectionModel
+from yolov5_tpu_torch.train.loss import ComputeLoss
+from yolov5_tpu_torch.train.optim import Optimizer
+from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+from yolov5_tpu_torch.utils.callbacks import Callbacks
+from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
+                                               restore_train_state, save_checkpoint,
+                                               variables_from_checkpoint)
+from yolov5_tpu_torch.utils.general import (check_dataset, check_img_size, increment_path,
+                                            init_seeds)
+from yolov5_tpu_torch.utils.hyp import load_hyp
+from yolov5_tpu_torch.utils.loggers import Loggers
+
+
+def find_resume_ckpt(resume, project="runs/train"):
+    """--resume -> a checkpoint path: True/'auto' -> the newest last.ckpt
+    under ``project``; a run dir -> its last.ckpt; else the path itself
+    (reference get_latest_run, train.py:624)."""
+    if resume is True or str(resume).lower() in ("auto", "true", "latest"):
+        cands = sorted(Path(project).glob("**/last.ckpt"), key=lambda p: p.stat().st_mtime)
+        if not cands:
+            raise FileNotFoundError(f"--resume: no last.ckpt found under {project}")
+        return cands[-1]
+    p = Path(resume)
+    if p.is_dir():
+        p = p / "last.ckpt"
+    if not p.exists():
+        raise FileNotFoundError(f"--resume checkpoint not found: {p}")
+    return p
+
+
+class EarlyStopper:
+    """Fitness-patience early stop (reference torch_utils.py:315-340)."""
+
+    def __init__(self, patience=100):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch, fi):
+        if fi >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fi
+        return (epoch - self.best_epoch) >= self.patience
+
+
+def ema_detector(state, imgsz, half, device):
+    """A ``Detector`` (BN folded) of the EMA weights, with the live anchors
+    rounded as the checkpoint meta stores them: ``val.run`` on the saved
+    ``best.ckpt`` rebuilds exactly this model."""
+    model = state.model
+    cfg = dict(model.cfg, nc=model.nc, anchors=anchors_to_yaml(model.anchors))
+    return Detector({**state.ema.params, **state.ema.batch_stats}, cfg=cfg, imgsz=imgsz,
+                    half=half, device=device)
+
+
+def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, imgsz=640,
+        optimizer="sgd", cos_lr=False, seed=0, workers=8, max_labels=None, single_cls=False,
+        patience=100, save_dir=None, project="runs/train", name="exp", exist_ok=False,
+        nosave=False, noval=False, save_period=-1, dtype="bfloat16", val_batch_size=None,
+        callbacks: Callbacks | None = None, resume="", freeze=None, multi_scale=False,
+        image_weights=False, cache=None, noautoanchor=False, device_aug=False, quad=False,
+        label_smoothing=0.0, noplots=False, rect=False, sync_bn=False, upload_dataset=False,
+        device="cuda", _resume_ckpt=None):
+    """Train a detector on ``device``. Returns (best_fitness, results of the
+    last validation, save_dir)."""
+    callbacks = callbacks or Callbacks()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train.run(device={str(device)!r}): no CUDA device is available")
+    if resume and _resume_ckpt is None:
+        if str(resume).startswith(("comet://", "wandb-artifact://")):
+            raise NotImplementedError(f"train.run: cloud resume {resume} is not ported")
+        # rehydrate the interrupted run's own opt.yaml/hyp.yaml (reference
+        # train.py:624-636 replaces opt wholesale from the run dir)
+        ckpt_path = find_resume_ckpt(resume, project)
+        run_dir = ckpt_path.parent
+        opt_file, hyp_file = run_dir / "opt.yaml", run_dir / "hyp.yaml"
+        if opt_file.exists():
+            saved = yaml.safe_load(opt_file.read_text()) or {}
+            saved.pop("resume", None)
+            if hyp_file.exists():
+                saved["hyp"] = str(hyp_file)
+            print(f"resuming {run_dir}")
+            return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(run_dir),
+                       callbacks=callbacks, device=device)
+        _resume_ckpt = str(ckpt_path)
+        save_dir = save_dir or str(run_dir)
+    for opt_name, on in dict(rect=rect, quad=quad, multi_scale=multi_scale,
+                             image_weights=image_weights, upload_dataset=upload_dataset).items():
+        if on:
+            raise NotImplementedError(f"train.run: --{opt_name.replace('_', '-')} is not ported")
+    if not device_aug:
+        raise NotImplementedError(
+            "train.run: host-side augmentation (yolov5_tpu/data/augment.py, load_mosaic, "
+            "the worker pool) is not ported; train with device_aug=True (--device-aug)")
+    if sync_bn:
+        print("--sync-bn: one device, nothing to synchronise")
+    init_seeds(seed)
+    data_dict = check_dataset(data)
+    nc = 1 if single_cls else int(data_dict["nc"])
+    opt_dict = {k: (str(v) if isinstance(v, Path) else v) for k, v in dict(
+        data=data, cfg=cfg, hyp=hyp, weights=weights, epochs=epochs, batch_size=batch_size,
+        imgsz=imgsz, optimizer=optimizer, cos_lr=cos_lr, seed=seed, workers=workers,
+        max_labels=max_labels, single_cls=single_cls, patience=patience, project=project,
+        name=name, nosave=nosave, noval=noval, save_period=save_period, dtype=dtype,
+        val_batch_size=val_batch_size, freeze=freeze, cache=cache,
+        noautoanchor=noautoanchor, device_aug=device_aug, label_smoothing=label_smoothing,
+    ).items()}
+    hyp = load_hyp(hyp)
+    if label_smoothing:
+        hyp["label_smoothing"] = float(label_smoothing)
+    amp = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+
+    save_dir = Path(save_dir) if save_dir else increment_path(Path(project) / name,
+                                                              exist_ok=exist_ok)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
+    (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
+    loggers = Loggers(save_dir)
+    last, best = save_dir / "last.ckpt", save_dir / "best.ckpt"
+
+    # model: unfused, float32 master weights
+    start_epoch, best_fitness, resume_payload = 0, 0.0, None
+    anchors = None
+    if _resume_ckpt:
+        resume_payload, meta = load_checkpoint(_resume_ckpt)
+        anchors = meta.get("anchors")  # autoanchor may have evolved them
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        best_fitness = float(meta.get("best_fitness", 0.0))
+        if start_epoch <= 0:
+            raise ValueError(f"{_resume_ckpt}: training is finished, nothing to resume")
+        if epochs < start_epoch:
+            print(f"{_resume_ckpt} has been trained for {start_epoch - 1} epochs; "
+                  f"fine-tuning for {epochs} more epochs")
+            epochs += start_epoch - 1
+    model = DetectionModel(cfg, nc=nc, seed=seed, anchors=anchors)
+    if data_dict.get("names"):
+        model.names = {int(k): v for k, v in data_dict["names"].items()}
+    if weights and not _resume_ckpt:
+        if str(weights).endswith(".pt"):
+            sd = load_torch_state_dict(weights)
+        else:
+            payload, _ = load_checkpoint(weights)
+            sd = from_jax_variables(variables_from_checkpoint(payload, prefer_ema=True))
+        missed = load_weights(model, sd)
+        if missed:
+            print(f"weight import: {len(missed)} unmatched entries")
+    imgsz = check_img_size(imgsz, s=max(model.stride))
+
+    # data: raw batches for the device mosaic, partners from the whole set
+    train_ds, train_loader = create_loader(
+        data_dict["train"], img_size=imgsz, batch_size=batch_size, augment=True,
+        workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
+        cache=cache if cache in ("ram", "disk") else None, device_aug=True)
+    max_labels = train_loader.max_labels
+    if not noautoanchor and not _resume_ckpt and not weights:
+        from yolov5_tpu_torch.utils.autoanchor import check_anchors
+
+        new_anchors = check_anchors(train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz)
+        if new_anchors != model.anchors:
+            model.anchors = new_anchors
+            model.cfg["anchors"] = anchors_to_yaml(new_anchors)
+            print("autoanchor: anchors updated")
+    val_loader = None
+    if data_dict.get("val") and not noval:
+        _, val_loader = create_loader(data_dict["val"], img_size=imgsz,
+                                      batch_size=val_batch_size or batch_size, workers=workers,
+                                      max_labels=max_labels, single_cls=single_cls)
+    nb = len(train_loader)
+    if nb == 0:
+        raise ValueError(f"train loader is empty for {data_dict.get('train')}")
+
+    model = model.to(device).to(memory_format=torch.channels_last)
+    hyp_scaled = scale_hyp(hyp, nl=len(model.stride), nc=nc, imgsz=imgsz)
+    loss_fn = ComputeLoss(model.anchors_per_stride, nc, hyp_scaled)
+    opt = Optimizer(dict(model.named_parameters()), hyp_scaled, epochs=epochs,
+                    steps_per_epoch=nb, batch_size=batch_size, name=optimizer, cos_lr=cos_lr,
+                    freeze=freeze)
+    state = init_train_state(model, opt)
+    if resume_payload is not None:
+        # momentum, accumulation, schedule position and EMA: the loss curve
+        # continues as if never interrupted
+        restore_train_state(state, resume_payload)
+        resume_payload = None
+
+    cache_dev = None
+    if cache in (None, "device"):
+        need = cache_nbytes(train_ds, max_labels)
+        if cache == "device" or need <= device_memory_budget(device):
+            cache_dev = to_device(build_cache_arrays(train_ds, max_labels), device)
+            print(f"device cache: {len(train_ds)} images ({need / 1e6:.0f} MB) on {device}")
+    step_fn = make_train_step(loss_fn, device_aug_hyp=hyp, dtype=amp, seed=seed)
+    stopper = EarlyStopper(patience)
+    callbacks.run("on_train_start")
+    print(f"training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} steps/epoch, "
+          f"{device}, imgsz {imgsz}")
+
+    results = {}
+    t_start = time.time()
+    epoch = start_epoch
+    for epoch in range(start_epoch, epochs):
+        callbacks.run("on_train_epoch_start")
+        train_loader.set_epoch(epoch)
+        t0 = time.time()
+        agg = None
+        if cache_dev is not None:
+            # one upload of the epoch's index batches; each step slices its row
+            idx_epoch = torch.from_numpy(np.stack([b["idx"] for b in index_batches(train_loader)]))
+            idx_epoch = idx_epoch.to(device)
+            batches = ({"idx": idx} for idx in idx_epoch)
+        else:
+            batches = ({k: torch.from_numpy(b[k]).to(device)
+                        for k in ("images", "hw", "targets", "valid")} for b in train_loader)
+        for batch in batches:
+            state, metrics = step_fn(state, batch, cache_dev)
+            agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
+            callbacks.run("on_train_batch_end")
+        agg = {k: v.item() for k, v in agg.items()}  # the epoch's one wait for the device
+        dt = time.time() - t0
+        row = {f"train/{k}": agg[k] / nb for k in ("box", "obj", "cls", "total")}
+        row["train/imgs_per_sec"] = nb * batch_size / dt
+        callbacks.run("on_train_epoch_end", epoch=epoch)
+
+        # validate the EMA weights (the reference validates ema, train.py:446)
+        fi = 0.0
+        if val_loader is not None:
+            det = ema_detector(state, imgsz, amp == torch.bfloat16, device)
+            results = evaluate(det.forward, val_loader, device)
+            row.update({f"val/{k}": results[k] for k in ("mp", "mr", "map50", "map")})
+            fi = results["fitness"]
+        row["fitness"] = fi
+        loggers.log_metrics(row, epoch)
+        print(f"epoch {epoch + 1}/{epochs}  "
+              + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+
+        best_fitness = max(best_fitness, fi)
+        if not nosave:
+            save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
+            if val_loader is not None and best_fitness == fi:
+                save_checkpoint(best, state, epoch, best_fitness)
+            if save_period > 0 and epoch % save_period == 0:
+                save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch, best_fitness)
+            callbacks.run("on_model_save", epoch=epoch)
+        callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fi)
+        if stopper(epoch, fi):
+            print(f"early stopping at epoch {epoch + 1} (no fitness gain in {patience} epochs)")
+            break
+
+    print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
+    callbacks.run("on_train_end")
+    return best_fitness, results, save_dir

@@ -1,14 +1,20 @@
-"""Reading the JAX package's ``.ckpt`` checkpoints without flax or msgpack.
+"""The JAX package's ``.ckpt`` checkpoints, read and written without flax or
+msgpack.
 
 A checkpoint is a msgpack file written by ``flax.serialization`` (a tree of
-{params, batch_stats, ema_params, ema_stats, ...}) and a JSON sidecar
-``<path>.json`` with cfg, names and the live anchors
+{params, batch_stats, ema_params, ema_stats, ema_updates, step, ...}) and a
+JSON sidecar ``<path>.json`` with cfg, names and the live anchors
 (``yolov5_tpu/utils/checkpoint.py``). ``msgpack_restore`` decodes what flax
 writes: nil, bool, every int and float width, str, bin, array and map in
 their fix/8/16/32 forms, and flax's ext types 1 (an ndarray: a packed
 (shape, dtype name, raw bytes)) and 3 (a numpy scalar). Any other type
 raises. bfloat16 arrays become ``torch.bfloat16`` tensors, from their raw
-bytes; every other array is a numpy array. Saving comes with training.
+bytes; every other array is a numpy array. ``msgpack_serialize`` is the
+inverse, and ``save_checkpoint`` writes files that the JAX package's
+``load_checkpoint`` reads: the same payload keys in the JAX layout, the
+same meta. The port's optimizer state goes under a key of its own,
+``torch_opt_state``; the JAX package's optax state (``opt_state``) cannot be
+resumed here and raises.
 """
 
 from __future__ import annotations
@@ -156,6 +162,126 @@ def msgpack_restore(data: bytes):
     return _unchunk(unpackb(data, ext_hook=_flax_ext))
 
 
+def _pack_len(out: list, n: int, fix_base, fix_max, wide):
+    """A length header: the fix form under fix_max, else the 8/16/32-bit one."""
+    if fix_base is not None and n < fix_max:
+        out.append(struct.pack(">B", fix_base | n))
+        return
+    for code, fmt, limit in wide:
+        if n < limit:
+            out.append(struct.pack(">B" + fmt, code, n))
+            return
+    raise ValueError(f"msgpack: length {n} is too long")
+
+
+_ARR = ((0xDC, "H", 1 << 16), (0xDD, "I", 1 << 32))
+_MAP = ((0xDE, "H", 1 << 16), (0xDF, "I", 1 << 32))
+_STR = ((0xD9, "B", 1 << 8), (0xDA, "H", 1 << 16), (0xDB, "I", 1 << 32))
+_BIN = ((0xC4, "B", 1 << 8), (0xC5, "H", 1 << 16), (0xC6, "I", 1 << 32))
+_EXT = ((0xC7, "B", 1 << 8), (0xC8, "H", 1 << 16), (0xC9, "I", 1 << 32))
+
+
+def _pack_int(out: list, v: int):
+    if 0 <= v < 0x80:
+        out.append(struct.pack(">B", v))
+    elif -32 <= v < 0:
+        out.append(struct.pack(">b", v))
+    elif v >= 0:
+        for code, fmt, limit in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                                 (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+            if v < limit:
+                out.append(struct.pack(">B" + fmt, code, v))
+                return
+        raise ValueError(f"msgpack: int {v} is too large")
+    else:
+        for code, fmt, limit in ((0xD0, "b", 1 << 7), (0xD1, "h", 1 << 15),
+                                 (0xD2, "i", 1 << 31), (0xD3, "q", 1 << 63)):
+            if v >= -limit:
+                out.append(struct.pack(">B" + fmt, code, v))
+                return
+        raise ValueError(f"msgpack: int {v} is too small")
+
+
+def _array_payload(a) -> bytes:
+    """flax's ndarray payload: msgpack of (shape, dtype name, C-order bytes)."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return packb([list(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()])
+        a = t.numpy()
+    a = np.asarray(a)
+    if a.dtype.hasobject:
+        raise ValueError("msgpack: object arrays are not written")
+    return packb([list(a.shape), a.dtype.name, a.tobytes()])
+
+
+def _encode(out: list, obj):
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 32, _STR)
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), None, 0, _BIN)
+        out.append(bytes(obj))
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, _MAP)
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise ValueError(f"msgpack: map key of type {type(k).__name__}; keys are str")
+            _encode(out, k)
+            _encode(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, _ARR)
+        for v in obj:
+            _encode(out, v)
+    elif isinstance(obj, (np.ndarray, torch.Tensor, np.generic)):
+        code = _EXT_NPSCALAR if isinstance(obj, np.generic) else _EXT_NDARRAY
+        payload = _array_payload(np.asarray(obj) if isinstance(obj, np.generic) else obj)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(struct.pack(">B", fixext[n]))
+        else:
+            _pack_len(out, n, None, 0, _EXT)
+        out.append(struct.pack(">b", code))
+        out.append(payload)
+    else:
+        raise ValueError(f"msgpack: cannot write a {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """One msgpack object: the inverse of ``unpackb`` for None, bool, int,
+    float (as float64), str, bytes, lists and tuples, str-keyed dicts, and
+    numpy arrays, numpy scalars and tensors as flax's ext types."""
+    out = []
+    _encode(out, obj)
+    return b"".join(out)
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_sorted(v) for v in tree]
+    return tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """``flax.serialization.msgpack_serialize`` of a tree of dicts, lists,
+    scalars and arrays (numpy or torch; bfloat16 as flax writes it): the
+    same bytes, maps in sorted key order as flax's tree flattening leaves
+    them."""
+    return packb(_sorted(tree))
+
+
 def load_checkpoint(path):
     """Returns (payload dict of numpy trees, meta dict)."""
     path = Path(path)
@@ -176,3 +302,119 @@ def variables_from_checkpoint(payload, prefer_ema=True):
 def anchors_from_yaml(flat):
     """YAML-style flat lists -> nested ((w,h),...) tuples per level."""
     return tuple(tuple(zip(a[0::2], a[1::2])) for a in flat)
+
+
+def anchors_to_yaml(anchors):
+    """Nested ((w,h),...) per level -> YAML-style flat [w,h,w,h,...] lists."""
+    return [[round(float(v), 5) for pair in lvl for v in pair] for lvl in anchors]
+
+
+def _numpy_tree(tensors: dict) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in tensors.items()}
+
+
+def save_checkpoint(path, state, epoch=-1, best_fitness=0.0, extra=None, include_opt=False):
+    """Write ``state`` (a ``train.trainer.TrainState``) to <path> (msgpack)
+    and <path>.json (meta), in the JAX package's format: params and
+    batch_stats, the EMA's, ema_updates and step in the JAX layout, so that
+    ``yolov5_tpu.utils.checkpoint.load_checkpoint`` reads the file.
+    ``include_opt`` adds the port's optimizer state under ``torch_opt_state``
+    (last.ckpt, for --resume); without it the file is the stripped
+    inference artifact (best.ckpt)."""
+    from yolov5_tpu_torch.models.weights import to_jax_variables
+    from yolov5_tpu_torch.train.trainer import batch_stats
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    model = state.model
+    live = to_jax_variables({**_numpy_tree(dict(model.named_parameters())),
+                             **_numpy_tree(batch_stats(model))})
+    ema = to_jax_variables({**_numpy_tree(state.ema.params), **_numpy_tree(state.ema.batch_stats)})
+    payload = {
+        "params": live["params"], "batch_stats": live.get("batch_stats", {}),
+        "ema_params": ema["params"], "ema_stats": ema.get("batch_stats", {}),
+        "ema_updates": int(state.ema.updates), "step": int(state.step),
+    }
+    if include_opt:
+        opt = state.opt.state_dict()
+        payload["torch_opt_state"] = {k: (_numpy_tree(v) if isinstance(v, dict) else v)
+                                      for k, v in opt.items()}
+    path.write_bytes(msgpack_serialize(payload))
+    meta = {
+        "epoch": epoch,
+        "best_fitness": float(best_fitness),
+        "cfg": model.cfg if isinstance(model.cfg, dict) else str(model.cfg),
+        "nc": model.nc,
+        "names": {int(k): v for k, v in model.names.items()},
+        "stride": list(model.stride),
+        # the live anchors, not the cfg's: autoanchor may have evolved them
+        "anchors": anchors_to_yaml(model.anchors),
+        "format": "yolov5_tpu-ckpt-v1",
+    }
+    if extra:
+        meta.update(extra)
+    Path(str(path) + ".json").write_text(json.dumps(meta, indent=1, default=str))
+
+
+def strip_optimizer(path, out=None):
+    """Drop the optimizer state (the JAX package's or the port's) from a
+    checkpoint and mark it finished (meta epoch -1): the reference's
+    strip_optimizer. Rewrites in place unless ``out`` is given; returns the
+    output path."""
+    path = Path(path)
+    payload = msgpack_restore(path.read_bytes())
+    before = path.stat().st_size
+    payload.pop("opt_state", None)
+    payload.pop("torch_opt_state", None)
+    out = Path(out) if out else path
+    out.write_bytes(msgpack_serialize(payload))
+    meta_path = Path(str(path) + ".json")
+    if meta_path.exists():
+        meta = json.loads(meta_path.read_text())
+        meta["epoch"] = -1
+        Path(str(out) + ".json").write_text(json.dumps(meta, indent=1, default=str))
+    print(f"strip_optimizer: {path} {before / 1e6:.1f}MB -> {out.stat().st_size / 1e6:.1f}MB")
+    return out
+
+
+@torch.no_grad()
+def restore_train_state(state, payload):
+    """Load a checkpoint payload into ``state`` (a TrainState) in place and
+    return it: params and batch stats into the model, the EMA (params,
+    stats, updates), the step, and, when the file has it, the port's
+    optimizer state (momentum or Adam moments, accumulation, counters).
+
+    A payload with the JAX package's optax ``opt_state`` and no port state
+    raises: its momentum buffers are not mapped to the port's, and resuming
+    with fresh ones would silently change the run. A file without optimizer
+    state (best.ckpt, or one written without it) restores the rest and
+    keeps the optimizer as it is."""
+    from yolov5_tpu_torch.models.weights import from_jax_variables
+    from yolov5_tpu_torch.train.optim import EMAState
+    from yolov5_tpu_torch.train.trainer import batch_stats
+
+    if payload.get("opt_state") is not None and payload.get("torch_opt_state") is None:
+        raise ValueError(
+            "this checkpoint holds the JAX package's optax optimizer state (opt_state); "
+            "the port cannot resume it. Start a new run from its weights (--weights) "
+            "instead of --resume.")
+    model = state.model
+    own = {**dict(model.named_parameters()), **batch_stats(model)}
+    live = from_jax_variables({"params": payload["params"],
+                               "batch_stats": payload["batch_stats"]})
+    missing = sorted(set(own) - set(live))
+    if missing:
+        raise ValueError(f"checkpoint does not match the model: missing {missing[:5]}")
+    for k, v in own.items():
+        v.copy_(live[k])
+    ema_vars = from_jax_variables({
+        "params": payload.get("ema_params") or payload["params"],
+        "batch_stats": payload.get("ema_stats") or payload["batch_stats"]})
+    dev = next(model.parameters()).device
+    params = {k: ema_vars[k].to(dev) for k in dict(model.named_parameters())}
+    stats = {k: ema_vars[k].to(dev) for k in batch_stats(model)}
+    state.ema = EMAState(params, stats, int(payload.get("ema_updates", 0)))
+    state.step = int(payload.get("step", 0))
+    if payload.get("torch_opt_state") is not None:
+        state.opt.load_state_dict(payload["torch_opt_state"])
+    return state

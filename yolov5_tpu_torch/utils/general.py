@@ -1,7 +1,7 @@
-"""Run directories, image-size rounding and dataset configs.
+"""Run directories, image-size rounding, dataset configs and seeding.
 
-Copies of ``increment_path``, ``check_img_size`` and ``check_dataset`` from
-``yolov5_tpu/utils/general.py``, tested equal to them. Dataset presets are
+Copies of ``increment_path``, ``check_img_size``, ``check_dataset`` and
+``init_seeds`` from ``yolov5_tpu/utils/general.py``, tested equal to them. Dataset presets are
 read by path from ``yolov5_tpu/data/configs``.
 """
 
@@ -9,8 +9,11 @@ from __future__ import annotations
 
 import math
 import os
+import random
 from pathlib import Path
 
+import numpy as np
+import torch
 import yaml
 
 DATA_CONFIG_DIR = Path(__file__).resolve().parents[2] / "yolov5_tpu" / "data" / "configs"
@@ -29,6 +32,14 @@ def increment_path(path, exist_ok=False, sep="", mkdir=False):
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def init_seeds(seed=0):
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
 
 
 def check_img_size(imgsz, s=32, floor=0):
