@@ -6,22 +6,41 @@
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds yolov5_tpu_torch/csrc/*.cu for sm_90a;
-  3. K2 (fused stem) against its plain PyTorch version on the card;
-  4. K1 (greedy NMS) against its plain PyTorch version on the card, masks equal;
+  3. K2 (fused stem) against its plain PyTorch version on the card: 8
+     shapes (B = 1, H = 2, output widths off the 64-pixel tile, every c2) x
+     f32/bf16 inputs x f32/bf16 weights; f32 within atol 1e-5, rtol 1e-4,
+     bf16 within one ulp;
+  4. K1 (greedy NMS) against its plain PyTorch version on the card, masks
+     equal: 24 cases at the paths' sizes and 21 edge cases (K at the 512-
+     candidate chunk edges, max_det and padding mid-chunk, identical boxes,
+     a threshold tie across a chunk, thresholds < 0);
   5. the slice: yolov5s at 640 px in bf16 with seeded random weights,
      letterboxed requests, Detector.__call__ at b32, boxes scaled back; both
-     kernels' launch counters must rise, and the detections must agree with
-     the same batch run through the plain versions;
-  6. times on the card (CUDA events, after warmup);
+     kernels' launch counters must rise; the raw maps agree with the plain
+     stem's, K1's detections on the same maps equal its plain version's,
+     and against the whole path through both plain versions the counts are
+     equal and, at the serving defaults, the detections match as sets
+     (same class, box within 1 px): K2 sums in another order than the plain
+     f32 convolution, so bf16 scores may differ in the last place;
+  6. times on the card (CUDA events, after warmup): each kernel at the main
+     path's shapes beside its bound (computed here from the shapes and, for
+     K1, from the IoUs greedy needs on the captured inputs), its plain
+     version, its launches per call and, for K2, cuDNN's bf16 conv + SiLU
+     as a yardstick; K2 also in f32;
   7. val data: 128 BMP images (4 shapes, long side 640) of filled
      rectangles of 3 classes, YOLO labels and a data YAML, in a temporary
      directory;
   8. val: eval.evaluator.run (the validation path: rect batches, multi-label
      NMS at the 30 720 cap, native-space matching) for yolov5s at 640 px,
-     b32, bf16: (a) with the kernels, (b) through their plain versions, with
-     identical detections and mAP; (c) save_hybrid, mAP50 >= 0.99; (d)
-     save_json with COCO scoring; (e) TTA, equal to its plain twin; both
-     launch counters must rise in (a), (c), (d) and (e);
+     b32, bf16: (a) with the kernels, (b) through K1's plain version, with
+     identical detections and mAP, and through both plain versions, with
+     equal counts and >= 99% of the detections matched within 1 px; (c)
+     save_hybrid, mAP50 >= 0.99; (d) save_json with COCO scoring; (e) TTA,
+     equal to its run through K1's plain version, and against its runs
+     through both plain versions equal in counts at conf 0.001 and with
+     >= 99% of either run's detections matched within 1 px at the serving
+     defaults (conf 0.25, IoU 0.45, max_det 1000); both launch counters
+     must rise in (a), (c), (d) and (e);
   9. val times: the b32 and b1 speeds, K1 at the eval cap beside its plain
      version, and the multi-label selection sort;
  10. train data: 128 BMP train images written as the val set (4 shapes, long
@@ -35,7 +54,8 @@ Phases, one line each:
      last.ckpt giving epoch 3's losses of the uninterrupted run;
  12. train times: ms per b32 step with and without device augmentation,
      device augmentation alone, img/s, peak memory, one profiler line.
-Then one JSON line with each kernel's launches, error and times, and last
+Then one JSON line with each kernel's launches (in all, and per main-path
+call), error, times, bound and yardstick, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -44,6 +64,7 @@ before printing a result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import struct
 import subprocess
@@ -112,6 +133,20 @@ def routed(stem=None, nms=None):
         layers_mod.stem_conv, nms_mod.greedy_nms = saved
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Leave the kernels' launch counters as they were: a run made only to
+    compare with a plain version is not a run of the path."""
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    saved = stem_conv.launches, greedy_nms.launches
+    try:
+        yield
+    finally:
+        stem_conv.launches, greedy_nms.launches = saved
+
+
 def bf16_ulp(x):
     """One bf16 unit in the last place at |x| (8 significant bits)."""
     import torch
@@ -146,6 +181,7 @@ def phase_device():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    print(smi[0])
     print(f"device: {smi[0]} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {torch.cuda.device_count()} visible")
     return smi[0]
@@ -171,13 +207,18 @@ def phase_stem(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"f32": 0.0, "bf16": 0.0}
-    for B, H, W, c2 in ((4, 640, 640, 32), (2, 480, 320, 16), (2, 640, 640, 80)):
+    n = 0
+    # the main path's shape, other widths, and edges: B = 1, H = 2, output
+    # widths that are not a multiple of the kernel's 64-pixel tile
+    for B, H, W, c2 in ((4, 640, 640, 32), (2, 480, 320, 16), (2, 640, 640, 80), (1, 2, 2, 32),
+                        (1, 2, 258, 48), (3, 36, 142, 64), (2, 130, 6, 80), (2, 64, 96, 16)):
         x32 = torch.rand((B, 3, H, W), generator=gen, device=dev)
         x32 = x32.contiguous(memory_format=torch.channels_last)
-        w = (torch.rand((c2, 3, 6, 6), generator=gen, device=dev) - 0.5) * 0.4
-        b = (torch.rand((c2,), generator=gen, device=dev) - 0.5)
-        for dt in (torch.float32, torch.bfloat16):
-            x = x32.to(dt)
+        w32 = (torch.rand((c2, 3, 6, 6), generator=gen, device=dev) - 0.5) * 0.4
+        b32 = (torch.rand((c2,), generator=gen, device=dev) - 0.5)
+        for dt, wdt in itertools.product((torch.float32, torch.bfloat16), repeat=2):
+            x, w, b = x32.to(dt), w32.to(wdt), b32.to(wdt)
+            n += 1
             got, ref = stem_conv(x, w, b), stem_conv_plain(x, w, b)
             torch.cuda.synchronize()
             if not got.is_contiguous(memory_format=torch.channels_last) or got.dtype != dt:
@@ -190,9 +231,10 @@ def phase_stem(dev):
             key = "f32" if dt == torch.float32 else "bf16"
             worst[key] = max(worst[key], err.max().item())
             if bad.any():
-                raise AssertionError(f"stem_conv {B}x{H}x{W} c2={c2} {dt}: {int(bad.sum())} "
+                raise AssertionError(f"stem_conv {B}x{H}x{W} c2={c2} x {dt} w {wdt}: "
+                                     f"{int(bad.sum())} "
                                      f"elements out of tolerance, max err {err.max().item()}")
-    print(f"K2 stem_conv vs plain: 3 shapes x (f32, bf16) ok; max abs err "
+    print(f"K2 stem_conv vs plain: {n} cases (8 shapes x x f32/bf16 x w f32/bf16) ok; max abs err "
           f"f32 {worst['f32']:.3g} (atol 1e-5, rtol 1e-4), bf16 {worst['bf16']:.3g} (1 ulp)")
     return worst["bf16"]
 
@@ -238,9 +280,52 @@ def phase_nms(dev):
                             f"greedy_nms K={k} thres={thres} max_det={max_det} offset={offset}: "
                             f"{worst} mask entries differ")
                     n += 1
+    n_edge = 0
+    for name, (boxes, scores, thres, max_det) in _nms_edge_cases(gen, dev):
+        got = greedy_nms(boxes, scores, thres, max_det)
+        ref = greedy_nms_plain(boxes, scores, thres, max_det)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"greedy_nms edge case {name}: {int((got != ref).sum())} "
+                                 "mask entries differ")
+        n_edge += 1
     print(f"K1 greedy_nms vs plain: {n} cases (K 300/2048/30720, thres 0.45/0.6, "
-          f"max_det 300/1000, with and without class offsets) masks equal")
+          f"max_det 300/1000, with and without class offsets) and {n_edge} edge cases "
+          f"(K at chunk edges, max_det and padding mid-chunk, identical boxes, a threshold "
+          f"tie across a chunk, thres < 0) masks equal")
     return float(worst)
+
+
+def _nms_edge_cases(gen, dev):
+    """(name, (boxes, scores, thres, max_det)) around K1's 512-candidate
+    chunks and 32-bit words, its stops and its early reject."""
+    import numpy as np
+    import torch
+
+    for k in (1, 63, 64, 65, 511, 512, 513, 1025, 2049):
+        boxes, scores = _sorted_candidates(gen, 3, k, dev, offset_classes=3)
+        yield f"K={k}", (boxes, scores, 0.45, 4096)
+    for max_det in (1, 37, 513):
+        boxes, scores = _sorted_candidates(gen, 3, 3000, dev, offset_classes=80)
+        yield f"max_det={max_det}", (boxes, scores, 0.5, max_det)
+    for pad_from in (0, 40, 512, 700):
+        boxes, scores = _sorted_candidates(gen, 2, 1200, dev, offset_classes=80)
+        scores[:, pad_from:pad_from + 5] = 0.0  # positive again after the padding
+        yield f"pad_from={pad_from}", (boxes, scores.contiguous(), 0.45, 1000)
+    same = torch.tensor([[10.0, 20.0, 50.0, 80.0]], device=dev).repeat(2, 1500, 1)
+    line = torch.linspace(1.0, 0.1, 1500, device=dev).repeat(2, 1)
+    yield "identical boxes", (same.contiguous(), line.contiguous(), 0.45, 1000)
+    far = torch.tensor([[1000.0 * i, 5000.0, 1000.0 * i + 3, 5003.0] for i in range(511)])
+    pair = torch.tensor([[200.0, 0.0, 210.0, 10.0], [205.0, 0.0, 215.0, 10.0]])
+    f = np.float32
+    tie = float(f(50) / (f(f(100) + f(100)) - f(50) + f(1e-7)))
+    boxes = torch.cat([far, pair])[None].to(dev)
+    scores = torch.linspace(1.0, 0.5, 513, device=dev)[None]
+    for thres in (tie, float(np.nextafter(f(tie), f(0)))):
+        yield f"tie thres={thres!r}", (boxes, scores, thres, 1000)
+    boxes, scores = _sorted_candidates(gen, 2, 900, dev)
+    for thres in (-0.5, 0.0):
+        yield f"thres={thres}", (boxes, scores, thres, 1000)
 
 
 def random_weights(cfg, seed):
@@ -272,7 +357,7 @@ def phase_slice(dev):
     from yolov5_tpu_torch.data.letterbox import letterbox
     from yolov5_tpu_torch.infer import Detector
     from yolov5_tpu_torch.ops.boxes import scale_boxes
-    from yolov5_tpu_torch.ops.nms import non_max_suppression_from_maps
+    from yolov5_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression_from_maps
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
     from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
 
@@ -322,24 +407,59 @@ def phase_slice(dev):
     for f in d_kern._fields:
         if not torch.equal(getattr(d_kern, f), getattr(d_plain, f)):
             raise AssertionError(f"detections on the same maps, K1 vs plain: {f} differ")
+    # the whole path through both plain versions. K1 is exact, but the plain
+    # stem is cuDNN's sequential f32 sum and K2 sums on the tensor cores in
+    # another order, so a few bf16 stem outputs differ by one ulp (phase 3)
+    # and the bf16 network carries that to the scores: detections are
+    # compared as sets, at conf 0.01 (many near-tied scores from random
+    # weights, reported) and at the serving defaults (required)
     with routed(stem=stem_conv_plain, nms=greedy_nms_plain):
         d_twin = det(batch, **kw)
+        d_twin_def = det(batch)
+    d_def = det(batch)
     twin_counts = d_twin.counts.tolist()
-    both = dets.valid & d_twin.valid
-    box_err = (dets.boxes[both] - d_twin.boxes[both]).abs().max().item()
+    low = match_detections(detections_to_numpy(dets), detections_to_numpy(d_twin))
+    serve = match_detections(detections_to_numpy(d_def), detections_to_numpy(d_twin_def))
     print(f"slice: yolov5s {IMGSZ}px bf16 b{BATCH}, {n_boxes} detections "
           f"(per image {min(counts)}..{max(counts)}), launches {launches}; "
           f"maps vs plain stem max err {map_err:.3g} (tol {map_tol:.3g}); "
-          f"K1 vs plain on the same maps: equal; full twin path counts "
-          f"{'equal' if counts == twin_counts else 'DIFFER'}, box err {box_err:.3g}")
-    if counts != twin_counts:
-        raise AssertionError(f"valid counts, kernels vs plain: {counts} vs {twin_counts}")
-    if box_err > 1.0:  # px at 640: a few bf16 ulps of the decoded coordinates
-        raise AssertionError(f"boxes, kernels vs plain: max err {box_err} px")
+          f"K1 vs plain on the same maps: equal; against the plain twin path: counts "
+          f"{'equal' if counts == twin_counts else 'DIFFER'}, {low[0]}/{low[1]} detections "
+          f"matched within 1 px at conf 0.01; at the serving defaults (conf 0.25) counts "
+          f"{'equal' if d_def.counts.tolist() == d_twin_def.counts.tolist() else 'DIFFER'}, "
+          f"{serve[0]}/{serve[1]} matched, max box err {serve[3]:.3g} px, max score diff "
+          f"{serve[2]:.3g}")
+    if counts != twin_counts or d_def.counts.tolist() != d_twin_def.counts.tolist():
+        raise AssertionError("valid counts, kernels vs plain twin differ")
+    if serve[0] < 0.99 * serve[1]:
+        raise AssertionError(f"serving defaults: only {serve[0]}/{serve[1]} detections of the "
+                             "kernel path within 1 px of the plain twin's")
     return det, batch, launches
 
 
-def phase_times(dev, det, batch):
+def match_detections(a, b, px=1.0):
+    """Per-image detection rows [x1, y1, x2, y2, conf, cls, ...] of two runs:
+    how many of a's rows b has too (same class, every coordinate within px;
+    in a's score order, each b row used once), of how many, the largest
+    score difference and box difference over the matched pairs."""
+    hit = total = 0
+    score_diff = box_err = 0.0
+    for ra, rb in zip(a, b):
+        used = np.zeros(len(rb), bool)
+        total += len(ra)
+        for r in ra[np.argsort(-ra[:, 4], kind="stable")]:
+            d = np.abs(rb[:, :4] - r[:4]).max(1) if len(rb) else np.zeros(0)
+            ok = ~used & (rb[:, 5] == r[5]) & (d <= px)
+            if ok.any():
+                j = np.flatnonzero(ok)[np.argmin(np.abs(rb[ok, 4] - r[4]))]
+                used[j] = True
+                hit += 1
+                score_diff = max(score_diff, abs(float(rb[j, 4] - r[4])))
+                box_err = max(box_err, float(d[j]))
+    return hit, total, score_diff, box_err
+
+
+def phase_times(dev, det, batch, launches, smi):
     """Times on the card by CUDA events, after warmup."""
     import torch
     import torch.nn.functional as F
@@ -368,21 +488,108 @@ def phase_times(dev, det, batch):
         non_max_suppression_from_maps(maps, det.anchors, det.stride, **nms_kw)
     k1 = cuda_ms(lambda: greedy_nms(*captured["args"]), iters=20)
     k1_plain = cuda_ms(lambda: greedy_nms_plain(*captured["args"]), iters=2, warmup=1)
+    k1_bound, k1_by, n_iou = nms_bound_ms(*captured["args"])
 
-    # K2 at the main path's shape
+    # K2 at the main path's shape, and in f32 (the val CLI's default dtype)
     stem = det.model.model[0]
     x = images.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
     w, b = stem.conv.weight, stem.conv.bias
     k2 = cuda_ms(lambda: stem_conv(x, w, b), iters=50)
+    k2_alone = cuda_ms(stem_kernel_call(x, w, b), iters=50)
     k2_plain = cuda_ms(lambda: stem_conv_plain(x, w, b), iters=50)
     k2_cudnn_bf16 = cuda_ms(lambda: F.silu(F.conv2d(x, w, b, stride=2, padding=2)), iters=50)
+    k2_bound, k2_by = stem_bound_ms(x, w.shape[0])
+    x32, w32, b32 = x.float(), w.float(), b.float()
+    k2_f32 = cuda_ms(lambda: stem_conv(x32, w32, b32), iters=20)
+    k2_f32_bound, _ = stem_bound_ms(x32, w.shape[0])
     print(f"times: forward {BATCH / fwd * 1e3:.1f} img/s ({fwd:.3f} ms/b{BATCH}); "
           f"forward+NMS {BATCH / full * 1e3:.1f} img/s ({full:.3f} ms); "
-          f"NMS at the 2048 cap {nms / BATCH:.4f} ms/img; "
-          f"K1 {k1:.3f} ms vs plain {k1_plain:.3f} ms (b{BATCH}x2048); "
-          f"K2 {k2:.3f} ms vs plain {k2_plain:.3f} ms (f32 cuDNN, TF32) vs cuDNN bf16 "
-          f"{k2_cudnn_bf16:.3f} ms (b{BATCH}x640, bf16)")
-    return {"greedy_nms": (k1, k1_plain), "stem_conv": (k2, k2_plain)}
+          f"NMS at the 2048 cap {nms / BATCH:.4f} ms/img | {smi}")
+    print(f"K1 b{BATCH}x2048 IoU 0.45 max_det 1000: {k1:.4f} ms; bound {k1_bound:.5f} ms "
+          f"({k1_by}: {n_iou} IoUs greedy needs on these inputs), {100 * k1_bound / k1:.2f}% of "
+          f"it; plain {k1_plain:.3f} ms; no library call; "
+          f"launches per call {launches['greedy_nms']} | {smi}")
+    print(f"K2 b{BATCH}x640 bf16 c2={w.shape[0]}: {k2:.4f} ms through its wrapper (weights "
+          f"packed per call), {k2_alone:.4f} ms the kernel alone; bound {k2_bound:.4f} ms "
+          f"({k2_by}), {100 * k2_bound / k2:.1f}% of it; plain {k2_plain:.3f} ms (f32 cuDNN, "
+          f"TF32); cuDNN bf16 conv + SiLU {k2_cudnn_bf16:.3f} ms; f32 {k2_f32:.4f} ms (bound "
+          f"{k2_f32_bound:.4f} ms, {100 * k2_f32_bound / k2_f32:.1f}%); launches per call "
+          f"{launches['stem_conv']} | {smi}")
+    if not k2 < k2_cudnn_bf16:
+        raise AssertionError(f"K2 {k2} ms is not faster than cuDNN bf16 {k2_cudnn_bf16} ms")
+    return {"greedy_nms": dict(ms=k1, plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+                               library_ms=None),
+            "stem_conv": dict(ms=k2, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
+                              library_ms=k2_cudnn_bf16)}
+
+
+def stem_kernel_call(x, w, b):
+    """K2's C entry point on packed weights, without the wrapper's per-call
+    packing: the kernel's own time."""
+    import torch
+
+    from yolov5_tpu_torch import _build
+    from yolov5_tpu_torch.ops.stem import pack_stem_weights
+
+    w_hi, w_lo = pack_stem_weights(w)
+    bk = b.float().contiguous()
+    B, c2, H, W = x.shape[0], w.shape[0], x.shape[2], x.shape[3]
+    y = torch.empty((B, c2, H // 2, W // 2), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), w_hi.data_ptr(), None if w_lo is None else w_lo.data_ptr(),
+            bk.data_ptr(), y.data_ptr(), B, H, W, c2, 0 if x.dtype == torch.float32 else 1, stream)
+    alive = (w_hi, w_lo, bk, y)  # the pointers in args stay valid while call lives
+
+    def call():
+        _build.check(lib.yolo_stem_conv(*args), "stem_conv")
+        return alive
+
+    return call
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
+IOU_FLOPS = 17  # f32 operations of one IoU and its compare (nms_pallas._iou)
+
+
+def stem_bound_ms(x, c2):
+    """Least time of K2 on x: the input read and the output written once at
+    the memory rate, against 2 x 108 operations an output at the bf16 peak
+    (an f32 input runs three bf16 products on the tensor cores)."""
+    B, _, H, W = x.shape
+    outputs = B * (H // 2) * (W // 2) * c2
+    nbytes = x.numel() * x.element_size() + outputs * x.element_size()
+    flops = 2 * 108 * outputs * (3 if x.element_size() == 4 else 1)
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def nms_bound_ms(boxes, scores, thres, max_det):
+    """Least time of K1 on these inputs: boxes and scores read and the mask
+    written once, against the IoUs exact greedy needs here (each reached
+    candidate against the keeps before it) at the f32 peak. Returns the
+    bound, what sets it, and the IoU count."""
+    import torch
+
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms_plain
+
+    keep = greedy_nms_plain(boxes, scores, thres, max_det).long()
+    count = keep.cumsum(1)
+    k = scores.shape[1]
+    idx = torch.arange(k, device=boxes.device)
+
+    def first(mask):  # per image, the index of the first True, or k
+        return torch.where(mask, idx, k).min(1).values
+
+    end = torch.minimum(first(~(scores > 0)), first(count >= max_det) + 1)
+    n_iou = int(((count - keep) * (idx[None, :] < end[:, None])).sum())
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + keep.numel()
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, n_iou * IOU_FLOPS / F32_FLOP_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_iou
 
 
 def write_bmp(path, bgr):
@@ -476,23 +683,35 @@ def phase_val(dev, data, smi):
     stem_conv.launches = greedy_nms.launches = 0
     t0 = time.perf_counter()
     a, dets_a = kernel_run("a")
-    with captured_detections() as dets_b, routed(stem_conv_plain, counted_plain):
+    with captured_detections() as dets_b, routed(nms=counted_plain), uncounted():
         b = evaluator.run(**kw)
+    with captured_detections() as dets_p, routed(stem_conv_plain, greedy_nms_plain):
+        p = evaluator.run(**kw)
+    plain = match_detections([r for batch in dets_a for r in batch],
+                             [r for batch in dets_p for r in batch])
+    same_counts = [len(r) for bt in dets_a for r in bt] == [len(r) for bt in dets_p for r in bt]
     n_dets = sum(len(r) for batch in dets_a for r in batch)
     n_rows = sum(len(batch) for batch in dets_a)  # images, padding included
     if n_dets < 1 or not candidates or min(candidates) < 1:
         raise AssertionError(f"val (a): {n_dets} detections; candidates reaching K1 "
                              f"per image {candidates[:8]}...")
     if not _same_detections(dets_a, dets_b):
-        raise AssertionError("val: detections with the kernels differ from the plain run")
+        raise AssertionError("val: detections with the kernels differ from the run with "
+                             "K1's plain version")
     metrics = ("mp", "mr", "map50", "map")
     if any(a[k] != b[k] for k in metrics):
         raise AssertionError(f"val: kernels {[a[k] for k in metrics]} vs plain "
                              f"{[b[k] for k in metrics]}")
-    print(f"val (a) kernels vs (b) plain: {a['images']} images, {n_dets} detections "
-          f"(mean {n_dets / n_rows:.1f} per image), identical; mean candidates "
+    print(f"val (a) kernels vs (b) K1's plain version: {a['images']} images, {n_dets} "
+          f"detections (mean {n_dets / n_rows:.1f} per image), identical; mean candidates "
           f"reaching K1 {sum(candidates) / len(candidates):.0f} per image; "
-          + ", ".join(f"{k} {a[k]:.6f}" for k in metrics))
+          + ", ".join(f"{k} {a[k]:.6f}" for k in metrics)
+          + f"; (a) vs both plain versions: counts {'equal' if same_counts else 'DIFFER'}, "
+          f"{plain[0]}/{plain[1]} detections matched within 1 px, max score diff "
+          f"{plain[2]:.3g}, " + ", ".join(f"{k} {p[k]:.6f}" for k in metrics))
+    if not same_counts or plain[0] < 0.99 * plain[1]:
+        raise AssertionError(f"val (a) vs both plain versions: counts equal {same_counts}, "
+                             f"{plain[0]}/{plain[1]} matched")
 
     c, _ = kernel_run("c", save_hybrid=True)
     if c["map50"] < 0.99:
@@ -502,18 +721,48 @@ def phase_val(dev, data, smi):
     if "coco" not in d:
         raise AssertionError("val save_json: COCO scoring did not run")
     e, dets_e = kernel_run("e", augment=True)
-    with captured_detections() as dets_e2, routed(stem_conv_plain, greedy_nms_plain):
+    with captured_detections() as dets_e2, routed(nms=greedy_nms_plain), uncounted():
         evaluator.run(**kw, augment=True)
     n_tta = sum(len(r) for batch in dets_e for r in batch)
     if n_tta < 1 or not _same_detections(dets_e, dets_e2):
-        raise AssertionError(f"val TTA: {n_tta} detections; equal to the plain run: "
+        raise AssertionError(f"val TTA: {n_tta} detections; equal to K1's plain run: "
                              f"{_same_detections(dets_e, dets_e2)}")
+    # TTA through both plain versions (K2 at TTA's scaled shapes), compared as
+    # sets as the slice is. At val's conf 0.001 every image is cut at
+    # max_det, so the counts must be equal, but random weights give many
+    # near-tied scores and one bf16 ulp reorders greedy cascades (the match
+    # is reported). At the serving defaults no image reaches max_det, so a
+    # score at the conf threshold may cross it (the counts are reported),
+    # and >= 99% of either run's detections must match
+    serving = dict(conf_thres=0.25, iou_thres=0.45, max_det=1000)
+    tta = []
+    for extra in ({}, serving):
+        if extra:
+            _, dets_k = kernel_run("e, serving defaults", augment=True, **extra)
+        else:
+            dets_k = dets_e
+        with captured_detections() as dets_p, routed(stem_conv_plain, greedy_nms_plain):
+            evaluator.run(**kw, augment=True, **extra)
+        rows_k = [r for batch in dets_k for r in batch]
+        rows_p = [r for batch in dets_p for r in batch]
+        tta.append(([len(r) for r in rows_k], [len(r) for r in rows_p],
+                    *match_detections(rows_k, rows_p)))
     launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
     print(f"val (c) save_hybrid map50 {c['map50']:.4f} map {c['map']:.4f}; (d) COCO "
           f"map {d['coco']['map']:.6f} map50 {d['coco']['map50']:.6f} (in-house map "
-          f"{d['map']:.6f}); (e) TTA {n_tta} detections, equal to plain, map50 "
-          f"{e['map50']:.6f}; launches over (a)-(e) {launches}; "
-          f"{time.perf_counter() - t0:.1f} s | {smi}")
+          f"{d['map']:.6f}); (e) TTA {n_tta} detections, equal to K1's plain run, map50 "
+          f"{e['map50']:.6f}; vs both plain versions, "
+          + "; ".join(f"at {name}: {sum(nk)} vs {sum(np_)} detections, counts equal in "
+                      f"{sum(a == b for a, b in zip(nk, np_))}/{len(nk)} images, {hit}/{total} "
+                      f"matched within 1 px, max score diff {diff:.3g}"
+                      for name, (nk, np_, hit, total, diff, _) in
+                      zip(("conf 0.001", "the serving defaults"), tta))
+          + f"; launches over (a)-(e) {launches}; {time.perf_counter() - t0:.1f} s | {smi}")
+    (k0, p0, *_), (k1, p1, hit, *_) = tta
+    if k0 != p0 or hit < 0.99 * max(sum(k1), sum(p1)):
+        raise AssertionError(f"val TTA vs both plain versions: counts at conf 0.001 equal "
+                             f"{k0 == p0}; {hit} of {sum(k1)} and {sum(p1)} matched at the "
+                             "serving defaults")
     return a, launches
 
 
@@ -565,6 +814,7 @@ def phase_val_times(dev, data, a, smi):
     boxes, scores, thres, max_det = captured["args"]
     k1 = cuda_ms(lambda: greedy_nms(*captured["args"]), iters=20)
     k1_plain = cuda_ms(lambda: greedy_nms_plain(*captured["args"]), iters=2, warmup=1)
+    k1_bound, k1_by, n_iou = nms_bound_ms(*captured["args"])
     fwd = cuda_ms(lambda: det.forward(images), iters=10)
     nms = cuda_ms(lambda: nms_mod.non_max_suppression(preds, **kw), iters=10)
     flat = preds[..., 5:] * preds[..., 4:5]
@@ -577,7 +827,8 @@ def phase_val_times(dev, data, a, smi):
           f"selection sort of {tuple(flat.shape)} {sort:.3f} ms; K1 on "
           f"{tuple(boxes.shape[:2])} (IoU {thres:.2f}, max_det {max_det}, "
           f"{(scores > 0).sum(1).float().mean().item():.0f} candidates > 0 per image) "
-          f"{k1:.3f} ms vs plain {k1_plain:.3f} ms | {smi}")
+          f"{k1:.4f} ms vs plain {k1_plain:.3f} ms; K1 bound {k1_bound:.5f} ms ({k1_by}: "
+          f"{n_iou} IoUs), {100 * k1_bound / k1:.2f}% of it | {smi}")
     print(profile_line(lambda: nms_mod.non_max_suppression(det.forward(images), **kw),
                        f"val batch b{images.shape[0]} {tuple(images.shape[1:3])}", smi))
     return k1, k1_plain
@@ -811,7 +1062,7 @@ def main():
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
     det, batch, launches = phase_slice(dev)
-    times = phase_times(dev, det, batch)
+    times = phase_times(dev, det, batch, launches, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
         data = phase_val_data(root)
         a, val_launches = phase_val(dev, data, smi)
@@ -819,14 +1070,17 @@ def main():
         train_data = phase_train_data(root)
         train_launches = phase_train(dev, train_data, root, smi)
         phase_train_times(dev, train_data, smi)
+    per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
-         "max_abs_err": nms_err, "ms": times["greedy_nms"][0], "plain_ms": times["greedy_nms"][1]},
+         "launches_per_call": per_call["greedy_nms"], "max_abs_err": nms_err,
+         **times["greedy_nms"]},
         {"name": "stem_conv", "route": "cuda", "source": "yolov5_tpu_torch/csrc/stem_conv.cu",
          "replaces": "yolov5_tpu/ops/stem_pallas.py:180", "launches": launches["stem_conv"],
-         "max_abs_err": stem_err, "ms": times["stem_conv"][0], "plain_ms": times["stem_conv"][1]},
+         "launches_per_call": per_call["stem_conv"], "max_abs_err": stem_err,
+         **times["stem_conv"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

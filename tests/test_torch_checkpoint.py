@@ -121,14 +121,14 @@ def test_detector_ckpt_matches_jax(tmp_path, anchors):
     tests/test_torch_detector.py."""
     path = save_jax_checkpoint(CFG, tmp_path / "best.ckpt", anchors=anchors)
     jdet = JaxDetector(str(path), cfg="yolov5s", imgsz=64)
-    det = Detector(str(path), cfg="yolov5s", imgsz=64)
+    det = Detector(str(path), cfg="yolov5s", imgsz=64, device="cpu")
     assert det.nc == 3 and det.names == jdet.names == {0: "class0", 1: "class1", 2: "class2"}
     want = np.asarray(anchors or CFG["anchors"], np.float32).reshape(3, 3, 2)
     for got, ref, w in zip(det.anchors, jdet.model.anchors, want):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref, np.float32))
         np.testing.assert_array_equal(got.numpy(), w)
     # the EMA weights, not the raw ones
-    ema = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=64)
+    ema = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=64, device="cpu")
     ims = np.random.default_rng(2).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
     ref_maps = jdet._forward_maps(jdet._flat_params, jdet._prep_images(ims))
     for m, e, r in zip(det.forward_maps(ims), ema.forward_maps(ims), ref_maps):
@@ -148,16 +148,17 @@ def test_detector_ckpt_without_ema_and_weights_errors(tmp_path):
     """Without EMA weights the raw ones load."""
     path = save_jax_checkpoint(CFG, tmp_path / "last.ckpt", ema=False)
     raw = serialization.msgpack_restore(path.read_bytes())
-    det = Detector(str(path), imgsz=64)
+    det = Detector(str(path), imgsz=64, device="cpu")
     ref = Detector(from_jax_variables({"params": raw["params"],
-                                       "batch_stats": raw["batch_stats"]}), cfg=CFG, imgsz=64)
+                                       "batch_stats": raw["batch_stats"]}), cfg=CFG,
+                   imgsz=64, device="cpu")
     ims = np.random.default_rng(3).integers(0, 255, (1, 64, 64, 3)).astype(np.uint8)
     for m, r in zip(det.forward_maps(ims), ref.forward_maps(ims)):
         np.testing.assert_array_equal(m.numpy(), r.numpy())
     with pytest.raises(ValueError, match=r"\.pt or \.ckpt"):
-        Detector(str(tmp_path / "weights.onnx"))
+        Detector(str(tmp_path / "weights.onnx"), device="cpu")
     with pytest.raises(ValueError, match="ensemble"):
-        Detector([str(path), str(path)])
+        Detector([str(path), str(path)], device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +240,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
         np.testing.assert_array_equal(got[k].numpy(), v.numpy())
 
     jdet = JaxDetector(str(path), imgsz=64)
-    det = Detector(str(path), imgsz=64)
+    det = Detector(str(path), imgsz=64, device="cpu")
     ims = np.random.default_rng(5).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
     ref = jdet._forward_maps(jdet._flat_params, jdet._prep_images(ims))
     for m, r in zip(det.forward_maps(ims), ref):

@@ -41,7 +41,7 @@ def test_detector_matches_jax(weights_pt, imgsz):
     near-equal score may trade places between the packages: detections are
     matched one to one rather than rank by rank."""
     jdet = JaxDetector(str(weights_pt), cfg="yolov5n", imgsz=imgsz)
-    det = Detector(from_jax_variables(jdet.variables), cfg="yolov5n", imgsz=imgsz)
+    det = Detector(from_jax_variables(jdet.variables), cfg="yolov5n", imgsz=imgsz, device="cpu")
     ims = np.random.default_rng(imgsz).integers(0, 255, (2, imgsz, imgsz, 3)).astype(np.uint8)
 
     ref_maps = jdet._forward_maps(jdet._flat_params, jdet._prep_images(ims))
@@ -63,8 +63,8 @@ def test_detector_pt_weights_and_classes(weights_pt):
     """The port's own .pt path gives the same maps as the from-JAX weights,
     and a class filter keeps only the requested classes."""
     jdet = JaxDetector(str(weights_pt), cfg="yolov5n", imgsz=64)
-    a = Detector(from_jax_variables(jdet.variables), cfg="yolov5n", imgsz=64)
-    b = Detector(str(weights_pt), cfg="yolov5n", imgsz=64)
+    a = Detector(from_jax_variables(jdet.variables), cfg="yolov5n", imgsz=64, device="cpu")
+    b = Detector(str(weights_pt), cfg="yolov5n", imgsz=64, device="cpu")
     ims = np.random.default_rng(1).integers(0, 255, (1, 64, 64, 3)).astype(np.uint8)
     for x, y in zip(a.forward_maps(ims), b.forward_maps(ims)):
         np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-4)
@@ -73,7 +73,7 @@ def test_detector_pt_weights_and_classes(weights_pt):
 
 
 def test_detector_bf16_runs_and_warmup():
-    det = Detector(cfg="yolov5n", imgsz=64, half=True)
+    det = Detector(cfg="yolov5n", imgsz=64, half=True, device="cpu")
     det.warmup(batch_size=1)
     maps = det.forward_maps(np.zeros((1, 64, 64, 3), np.uint8))
     assert maps[0].dtype == torch.bfloat16 and torch.isfinite(maps[0].float()).all()
@@ -84,6 +84,15 @@ def test_detector_cuda_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Detector(cfg="yolov5n", imgsz=64, device="cuda")
+
+
+def test_detector_defaults_to_the_card():
+    """Without ``device`` the Detector runs on CUDA, so on a machine without
+    a card it raises rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Detector(cfg="yolov5n", imgsz=64)
 
 
 def test_port_imports_no_jax():

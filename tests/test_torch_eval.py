@@ -33,7 +33,7 @@ def pair(tmp_path_factory):
     w = root / "w.pt"
     torch.save({k: torch.from_numpy(v) for k, v in random_detector_weights(CFG, 0).items()}, w)
     jdet = JaxDetector(str(w), cfg=CFG, imgsz=IMGSZ)
-    det = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=IMGSZ)
+    det = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=IMGSZ, device="cpu")
     return root / "images" / "val", jdet, det
 
 

@@ -55,7 +55,7 @@ def test_forward_tta_matches_jax(weights):
     that agree within 2e-3 (tests/test_torch_detector.py) and resized inputs
     within 2e-5."""
     jdet = JaxDetector(str(weights[0]), cfg=CFG, imgsz=128)
-    det = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=128)
+    det = Detector(from_jax_variables(jdet.variables), cfg=CFG, imgsz=128, device="cpu")
     ims = np.random.default_rng(0).integers(0, 255, (2, 96, 128, 3)).astype(np.uint8)
     ref = np.asarray(jdet._forward_tta(jdet.variables, jnp.asarray(ims)))
     got = det.forward_tta(ims).numpy()
@@ -74,7 +74,8 @@ def test_forward_tta_matches_jax(weights):
 def test_ensemble_matches_jax(weights):
     """Two members' decoded predictions, concatenated, then one NMS."""
     jdets = [JaxDetector(str(p), cfg=CFG, imgsz=64) for p in weights]
-    dets = [Detector(from_jax_variables(j.variables), cfg=CFG, imgsz=64) for j in jdets]
+    dets = [Detector(from_jax_variables(j.variables), cfg=CFG, imgsz=64, device="cpu")
+            for j in jdets]
     ims = np.random.default_rng(1).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
     ens, jens = Ensemble(dets), JaxEnsemble(jdets)
     # decoded boxes reach ~150 px: f32 differences of the maps scale with them
@@ -89,7 +90,7 @@ def test_ensemble_matches_jax(weights):
     assert set(sub.classes[sub.valid].tolist()) <= {1}
     with pytest.raises(ValueError, match="TTA"):
         ens(ims, augment=True)
-    built = ensemble([str(p) for p in weights], cfg=CFG, imgsz=64)
+    built = ensemble([str(p) for p in weights], cfg=CFG, imgsz=64, device="cpu")
     for a, b in zip(built.detectors, dets):
         for x, y in zip(a.forward_maps(ims), b.forward_maps(ims)):
             np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-4)

@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels with nvcc at first use and load them.
 
-Every ``.cu`` file under ``csrc/`` goes into one shared library with a plain
+Every ``.cu`` file under ``csrc/`` is compiled to an object by its own nvcc,
+all at once, and the objects are linked into one shared library with a plain
 C interface, ``build/libyolov5_kernels-<hash>.so``, keyed on a hash of the
 sources and the flags, so an edited kernel is rebuilt and an unchanged one is
 reused. The library is loaded with ``ctypes``; the wrappers pass pointers
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -28,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # boxes, scores, keep, bs, K, thres, max_det, stream
     "yolo_greedy_nms": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # x, w, b, y, B, H, W, c2, dtype, stream
-    "yolo_stem_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w_hi, w_lo (or None), b, y, B, H, W, c2, dtype, stream
+    "yolo_stem_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _ERROR_STRING = "yolo_cuda_error_string"
 
@@ -60,19 +62,31 @@ def _nvcc() -> str:
                        "kernels of yolov5_tpu_torch cannot be built")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+def _run(cmd: list[str]) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc per source, started together, then one link."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        list(pool.map(_run, [[nvcc, *compile_flags, "-c", "-o", str(o), str(src)]
+                             for src, o in zip(srcs, objs)]))
+    _run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o in objs)])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

@@ -63,10 +63,12 @@ class Detector:
       - a state_dict in the reference torch layout (fused or not; see
         ``models.weights.from_jax_variables``).
     Several weights make an ``Ensemble``: see ``ensemble``. BN is folded at
-    load. ``half`` runs the model in bfloat16."""
+    load. ``half`` runs the model in bfloat16. It runs on the card unless
+    ``device`` says otherwise (``device="cpu"``), and raises where no card is
+    present."""
 
     def __init__(self, weights=None, cfg="yolov5s", imgsz=640, half=False,
-                 device="cpu", seed=0):
+                 device="cuda", seed=0):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Detector(device={device!r}): no CUDA device is available")
