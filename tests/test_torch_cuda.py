@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from yolov5_tpu_torch.data.imageio import imwrite
 from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
 
@@ -216,19 +217,6 @@ def test_greedy_nms_kernel_rejects_what_it_cannot_take(dev):
         greedy_nms(boxes, torch.zeros((1, 8), device=dev), 0.45, 5000)
 
 
-def _write_bmp(path, bgr):
-    """A (h, w, 3) uint8 BGR image as an uncompressed 24-bit bottom-up BMP."""
-    import struct
-
-    h, w, _ = bgr.shape
-    stride = (3 * w + 3) // 4 * 4
-    rows = np.zeros((h, stride), np.uint8)
-    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
-    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
-    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
-    path.write_bytes(head + info + rows.tobytes())
-
-
 def test_evaluate_kernels_equal_plain(dev, tmp_path, monkeypatch):
     """eval.evaluator.evaluate on the card (yolov5n, 160 px, bf16): the same
     detections and mAP with the kernels as through K1's plain version; and
@@ -251,7 +239,7 @@ def test_evaluate_kernels_equal_plain(dev, tmp_path, monkeypatch):
     for i, (h, w) in enumerate([(120, 160), (160, 120), (160, 160), (90, 160)] * 2):
         im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
         im[h // 4:h // 2, w // 4:w // 2] = 200
-        _write_bmp(tmp_path / "images" / f"{i}.bmp", im)
+        imwrite(tmp_path / "images" / f"{i}.bmp", im)
         (tmp_path / "labels" / f"{i}.txt").write_text("0 0.375 0.375 0.25 0.25\n")
     sd = DetectionModel("yolov5n").state_dict()
     gen = torch.Generator().manual_seed(0)
@@ -341,7 +329,7 @@ def _shapes_set(root, n_train=8, n_val=4, s=160):
             h, w = ((120, 160), (160, 120), (160, 160), (90, 160))[i % 4]
             im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
             im[h // 4:h // 2, w // 4:w // 2] = 200
-            _write_bmp(root / "images" / split / f"{i}.bmp", im)
+            imwrite(root / "images" / split / f"{i}.bmp", im)
             (root / "labels" / split / f"{i}.txt").write_text("0 0.375 0.375 0.25 0.25\n")
     data = root / "shapes.yaml"
     data.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: 2\n"
@@ -407,3 +395,80 @@ def test_train_run_validates_with_the_kernels(dev, tmp_path):
     best_epoch = json.loads((save_dir / "best.ckpt.json").read_text())["epoch"]
     for k in ("mp", "mr", "map50", "map"):
         assert abs(again[k] - float(rows[best_epoch][f"val/{k}"])) <= 1e-6, k
+
+
+def test_segment_forward_through_k2(dev, monkeypatch):
+    """yolov5s-seg (BN folded, f32) at 320 px on the card: its stem (c2 = 32)
+    runs K2, and the maps and prototypes agree with the run through K2's
+    plain version within 1e-3 of each tensor's largest value (K2 sums in
+    another order than the f32 convolution)."""
+    import yolov5_tpu_torch.models.layers as layers_mod
+    from yolov5_tpu_torch.infer_segment import Segmenter
+
+    seg = Segmenter(None, cfg="yolov5s-seg", device=dev)
+    assert seg.model.model[0].stem and seg.model.model[0].conv.weight.shape[0] == 32
+    ims = np.random.default_rng(0).integers(0, 256, (2, 320, 320, 3), dtype=np.uint8)
+    n = stem_conv.launches
+    preds, proto = seg.forward(ims)
+    assert stem_conv.launches == n + 1
+    monkeypatch.setattr(layers_mod, "stem_conv", stem_conv_plain)
+    ref_preds, ref_proto = seg.forward(ims)
+    for got, ref in ((preds, ref_preds), (proto, ref_proto)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-3 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("iou", [0.45, 0.6])
+def test_greedy_nms_kernel_at_the_segment_shape(dev, monkeypatch, iou):
+    """K1 at b1 x 25 200 candidates carrying 32 mask coefficients (segment
+    predict at 640 px): the NMS tail with K1 equals its run through K1's
+    plain version, coefficient columns included."""
+    import yolov5_tpu_torch.ops.nms as nms_mod
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, nc, nm = 25200, 80, 32
+    xy = torch.rand((1, n, 2), generator=gen, device=dev) * 640
+    wh = 4 + torch.rand((1, n, 2), generator=gen, device=dev) * 120
+    scores = torch.rand((1, n, 1 + nc), generator=gen, device=dev) ** 3
+    coeffs = torch.randn((1, n, nm), generator=gen, device=dev)
+    preds = torch.cat([xy, wh, scores, coeffs], -1)
+    n0 = greedy_nms.launches
+    got = nms_mod.non_max_suppression(preds, conf_thres=0.25, iou_thres=iou, max_det=300, nc=nc)
+    assert greedy_nms.launches == n0 + 1
+    monkeypatch.setattr(nms_mod, "greedy_nms", greedy_nms_plain)
+    ref = nms_mod.non_max_suppression(preds, conf_thres=0.25, iou_thres=iou, max_det=300, nc=nc)
+    assert int(got.valid.sum()) > 0 and got.masks.shape == (1, 300, nm)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def test_detect_run_on_the_card(dev, tmp_path, monkeypatch):
+    """infer.run on the card (yolov5n, 160 px, b4, BMP in and out): both
+    kernels launch, and the txt rows equal Detector.__call__'s on the same
+    letterboxed batch with the boxes scaled back."""
+    from pathlib import Path
+
+    from yolov5_tpu_torch.data.imageio import imread
+    from yolov5_tpu_torch.data.letterbox import letterbox, scale_boxes_np
+    from yolov5_tpu_torch.infer import Detector, run
+    from yolov5_tpu_torch.ops.nms import detections_to_numpy
+
+    rng = np.random.default_rng(1)
+    src = tmp_path / "src"
+    src.mkdir()
+    shapes = [(120, 160), (160, 120), (160, 160), (90, 160)]
+    for i, (h, w) in enumerate(shapes):
+        imwrite(src / f"{i}.bmp", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    n = (stem_conv.launches, greedy_nms.launches)
+    results, save_dir = run(weights=None, cfg="yolov5n", source=str(src), imgsz=160,
+                            conf_thres=0.001, batch_size=4, save_txt=True, device=dev,
+                            project=str(tmp_path), name="r", verbose=False)
+    assert stem_conv.launches > n[0] and greedy_nms.launches > n[1]
+    det = Detector(None, cfg="yolov5n", imgsz=160, device=dev)
+    im0s = [imread(src / f"{i}.bmp") for i in range(4)]
+    batch = np.stack([letterbox(im, 160)[0][..., ::-1] for im in im0s])
+    rows = detections_to_numpy(det(batch, conf_thres=0.001))
+    for (path, r), want, im0 in zip(results, rows, im0s):
+        want[:, :4] = scale_boxes_np((160, 160), want[:, :4], im0.shape[:2])
+        np.testing.assert_array_equal(r, want)
+        assert imread(save_dir / Path(path).name).shape == im0.shape

@@ -100,7 +100,11 @@ def test_port_imports_no_jax():
     code = ("import sys, yolov5_tpu_torch, yolov5_tpu_torch.infer, "
             "yolov5_tpu_torch.data.letterbox, yolov5_tpu_torch._build, chip_smoke, "
             "yolov5_tpu_torch.eval.evaluator, yolov5_tpu_torch.data.dataset, "
-            "yolov5_tpu_torch.utils.checkpoint, yolov5_tpu_torch.val\n"
+            "yolov5_tpu_torch.utils.checkpoint, yolov5_tpu_torch.val, "
+            "yolov5_tpu_torch.detect, yolov5_tpu_torch.segment, yolov5_tpu_torch.serve, "
+            "yolov5_tpu_torch.hub, yolov5_tpu_torch.results, yolov5_tpu_torch.infer_segment, "
+            "yolov5_tpu_torch.data.sources, yolov5_tpu_torch.ops.masks, "
+            "yolov5_tpu_torch.utils.net, yolov5_tpu_torch.utils.font\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'yolov5_tpu')]\n"
             "assert not bad, bad\n")

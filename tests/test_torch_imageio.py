@@ -1,5 +1,6 @@
 """yolov5_tpu_torch.data.imageio against OpenCV and PIL: BMP pixels equal
-cv2.imread's exactly, sizes and formats equal PIL's, and a format that
+cv2.imread's exactly, sizes and formats equal PIL's, BMP written here reads
+back in cv2 and decodes from bytes as cv2.imdecode does, and a format that
 needs a missing module raises ImportError naming the file."""
 
 import struct
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from yolov5_tpu_torch.data.imageio import image_size, imread
+from yolov5_tpu_torch.data.imageio import bmp_bytes, image_size, imdecode, imread, imwrite
 
 # odd widths exercise the 4-byte row padding (3w mod 4 = 1, 2, 3, 0)
 SHAPES = [(10, 13), (17, 10), (11, 15), (12, 16), (1, 1), (33, 7)]
@@ -106,3 +107,59 @@ def test_missing_decoder_is_not_a_corrupt_image(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match="photo.png"):
         verify_image_label(str(p), str(tmp_path / "photo.txt"))
+
+
+@pytest.mark.parametrize("hw", SHAPES)
+def test_imwrite_bmp_round_trips(tmp_path, hw):
+    """imwrite's BMP reads back equal through imread and cv2.imread, and its
+    bytes decode as cv2.imdecode decodes them; so do cv2.imencode's."""
+    im = np.random.default_rng(hw[0]).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    p = tmp_path / "w.bmp"
+    assert imwrite(p, im)
+    np.testing.assert_array_equal(imread(p), im)
+    np.testing.assert_array_equal(cv2.imread(str(p)), im)
+    data = p.read_bytes()
+    assert data == bmp_bytes(im)
+    np.testing.assert_array_equal(imdecode(data), cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                               cv2.IMREAD_COLOR))
+    enc = cv2.imencode(".bmp", im)[1]
+    np.testing.assert_array_equal(imdecode(enc), im)
+    np.testing.assert_array_equal(imdecode(enc.tobytes()), im)
+
+
+def test_imwrite_gray_and_other_suffixes(tmp_path):
+    gray = np.arange(35, dtype=np.uint8).reshape(5, 7)
+    assert imwrite(tmp_path / "g.bmp", gray)
+    np.testing.assert_array_equal(imread(tmp_path / "g.bmp"), np.repeat(gray[..., None], 3, 2))
+    im = np.random.default_rng(1).integers(0, 256, (9, 11, 3), dtype=np.uint8)
+    assert imwrite(tmp_path / "a.png", im)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "a.png")), im)
+
+
+def test_imdecode_other_formats_and_garbage():
+    im = np.random.default_rng(2).integers(0, 256, (13, 9, 3), dtype=np.uint8)
+    for ext in (".png", ".jpg"):
+        enc = cv2.imencode(ext, im)[1]
+        np.testing.assert_array_equal(imdecode(enc.tobytes()),
+                                      cv2.imdecode(enc, cv2.IMREAD_COLOR))
+    assert imdecode(b"not an image") is None
+    assert imdecode(bmp_bytes(im)[:100]) is None  # truncated BMP
+
+
+def test_imwrite_and_imdecode_without_cv2(tmp_path, monkeypatch):
+    """Without OpenCV: PNG is written through PIL, and without PIL too the
+    error names the file; decoding a PNG raises ImportError naming OpenCV;
+    BMP needs neither."""
+    im = np.random.default_rng(3).integers(0, 256, (6, 10, 3), dtype=np.uint8)
+    png = cv2.imencode(".png", im)[1].tobytes()
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    assert imwrite(tmp_path / "p.png", im)
+    with Image.open(tmp_path / "p.png") as f:
+        np.testing.assert_array_equal(np.asarray(f)[..., ::-1], im)
+    with pytest.raises(ImportError, match="OpenCV"):
+        imdecode(png)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="q.jpg"):
+        imwrite(tmp_path / "q.jpg", im)
+    assert imwrite(tmp_path / "b.bmp", im)
+    np.testing.assert_array_equal(imdecode((tmp_path / "b.bmp").read_bytes()), im)

@@ -167,6 +167,43 @@ def random_detector_weights(cfg, seed):
     return sd
 
 
+def seg_cfg(nc=3):
+    """The yolov5n-seg config as a dict with ``nc`` classes."""
+    import yaml
+
+    from yolov5_tpu_torch.models.yolo import CONFIG_DIR
+
+    with open(CONFIG_DIR / "yolov5n-seg.yaml") as f:
+        return {**yaml.safe_load(f), "nc": nc}
+
+
+def random_segmenter_weights(cfg, seed, imgsz=128):
+    """random_state_dict of the segmentation model of ``cfg`` with the BN
+    running statistics of a batch of noise images (so that every layer's
+    output is normalised and the scores vary from cell to cell through the
+    whole depth), Segment head weights 0.03x (small logits, so that the two
+    packages' f32 roundings stay within 1e-3 px of a box) and its biases
+    near -1."""
+    from yolov5_tpu_torch.models.yolo import SegmentationModel
+
+    rng = np.random.default_rng(seed)
+    model = SegmentationModel(cfg)
+    sd = random_state_dict(model, rng)
+    for k in sd:
+        if k.startswith("model.24.m."):
+            sd[k] = (rng.normal(-1.0, 0.5, sd[k].shape).astype(np.float32) if k.endswith("bias")
+                     else sd[k] * np.float32(0.03))
+    load_numpy_state_dict(model, sd)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0  # the running statistics become the batch's
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, imgsz, imgsz)).astype(np.float32))
+    with torch.no_grad():
+        model.train()(x.contiguous(memory_format=torch.channels_last))
+    return {k: v.numpy().copy() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
 def assert_same_rows(a, b, atol=1e-3):
     """Two per-image lists of (n, 6) [x1, y1, x2, y2, conf, cls] detections:
     equal counts per image and a one-to-one match (same class, box and
@@ -181,9 +218,29 @@ def assert_same_rows(a, b, atol=1e-3):
             free[np.flatnonzero(hit)[0]] = False
 
 
-def save_jax_checkpoint(cfg, path, anchors=None, ema=True, dtype=np.float32):
+def assert_same_records(got, ref, box_atol=1e-3, box_rtol=1e-5, conf_atol=1e-5):
+    """Two lists of detection records ({xmin, ymin, xmax, ymax, confidence,
+    class, name}): a one-to-one match, same class and name, box within
+    box_atol px + box_rtol of its largest coordinate (the f32 rounding of
+    boxes a few hundred px wide) and confidence within conf_atol
+    (near-equal scores may trade places)."""
+    coords = ("xmin", "ymin", "xmax", "ymax")
+    assert len(got) == len(ref)
+    free = np.ones(len(got), bool)
+    for r in ref:
+        tol = box_atol + box_rtol * max(abs(r[k]) for k in coords)
+        hit = [i for i, g in enumerate(got) if free[i] and g["class"] == r["class"]
+               and g["name"] == r["name"] and abs(g["confidence"] - r["confidence"]) <= conf_atol
+               and all(abs(g[k] - r[k]) <= tol for k in coords)]
+        assert hit, r
+        free[hit[0]] = False
+
+
+def save_jax_checkpoint(cfg, path, anchors=None, ema=True, dtype=np.float32,
+                        weights=random_detector_weights):
     """A .ckpt written by yolov5_tpu.utils.checkpoint.save_checkpoint of
-    random weights of ``cfg`` (EMA weights different from the raw ones)."""
+    random weights of ``cfg``, drawn by ``weights(cfg, seed)`` (EMA weights
+    different from the raw ones)."""
     from types import SimpleNamespace
 
     from yolov5_tpu.models import DetectionModel
@@ -191,8 +248,8 @@ def save_jax_checkpoint(cfg, path, anchors=None, ema=True, dtype=np.float32):
     from yolov5_tpu.utils.checkpoint import save_checkpoint
 
     model = DetectionModel(cfg, anchors=anchors)
-    raw, _ = import_torch_weights(model, random_detector_weights(cfg, 1))
-    avg, _ = import_torch_weights(model, random_detector_weights(cfg, 2))
+    raw, _ = import_torch_weights(model, weights(cfg, 1))
+    avg, _ = import_torch_weights(model, weights(cfg, 2))
     cast = lambda t: {k: cast(v) if isinstance(v, dict) else np.asarray(v).astype(dtype)
                       for k, v in t.items()}
     raw, avg = cast(raw), cast(avg)

@@ -1,0 +1,57 @@
+"""Hub-style model loading (the reference hubconf.py equivalent), the port
+of ``yolov5_tpu/hub.py``.
+
+    import yolov5_tpu_torch.hub as hub
+    det = hub.load("yolov5s")                      # seeded random weights
+    det = hub.load("path/to/best.ckpt")            # trained checkpoint
+    det = hub.load("yolov5s.pt", cfg="yolov5s")    # torch reference weights
+    seg = hub.load("yolov5s-seg", task="segment")  # SegmentationModel
+
+No weight downloads happen here; point ``load`` at local files.
+``list_models()`` enumerates the bundled config zoo. Everything runs on
+``device``, the card unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+from yolov5_tpu_torch.models.yolo import CONFIG_DIR
+
+
+def list_models():
+    return sorted(p.stem for p in CONFIG_DIR.glob("*.yaml"))
+
+
+def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",
+         device="cuda"):
+    """A ready ``infer.Detector`` (BN folded), or for ``task="segment"`` an
+    eval-mode ``SegmentationModel`` on ``device``."""
+    s = str(name_or_path)
+    if task == "detect" or s.endswith((".ckpt", ".pt")):
+        from yolov5_tpu_torch.infer import Detector
+
+        if s.endswith((".ckpt", ".pt")):
+            return Detector(s, cfg=cfg or "yolov5s", imgsz=imgsz, half=half, device=device)
+        return Detector(None, cfg=s, imgsz=imgsz, half=half, device=device)
+    if task == "segment":
+        from yolov5_tpu_torch.infer import resolve_device
+        from yolov5_tpu_torch.models.yolo import SegmentationModel
+
+        return SegmentationModel(cfg or s).to(resolve_device(device, "hub.load")).eval()
+    if task == "classify":
+        raise NotImplementedError("hub.load(task='classify'): the Classify head is not ported "
+                                  "yet (ROADMAP Open items 1, item 8)")
+    raise ValueError(f"unknown task {task}")
+
+
+# torch.hub-style named factories
+def _factory(name):
+    def f(weights="", imgsz=640, **kw):
+        return load(weights or name, cfg=name, imgsz=imgsz, **kw)
+
+    f.__name__ = name.replace("-", "_")
+    return f
+
+
+for _n in ("yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x",
+           "yolov5n6", "yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6"):
+    globals()[_n] = _factory(_n)

@@ -1,26 +1,39 @@
 """High-level inference: weights -> BN-folded model on an explicit device ->
-raw head maps -> decode + NMS -> padded ``Detections``.
+raw head maps -> decode + NMS -> padded ``Detections`` -> boxes on the source
+image, annotated and saved.
 
-The port of ``yolov5_tpu/infer.py``'s ``Detector`` (serving from the raw
-maps, the decoded forward that validation uses, test-time augmentation)
-and ``Ensemble``. On a CUDA device the forward's stem runs kernel K2 and the
+The port of ``yolov5_tpu/infer.py``: ``Detector`` (serving from the raw
+maps, the decoded forward that validation uses, test-time augmentation),
+``Ensemble``, ``annotate`` and ``save_one_box``, and ``run``, what the
+detect CLI calls. On a CUDA device the forward's stem runs kernel K2 and the
 suppression kernel K1; the other convolutions run through ``F.conv2d``.
+Annotation draws with numpy (``utils/font.py`` for the labels), so it needs
+no OpenCV.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from yolov5_tpu_torch.data.imageio import imwrite
+from yolov5_tpu_torch.data.letterbox import scale_boxes_np
+from yolov5_tpu_torch.data.sources import LoadImages, batched
 from yolov5_tpu_torch.models.layers import decode
 from yolov5_tpu_torch.models.weights import (fuse_conv_bn, from_jax_variables,
                                              load_torch_state_dict, load_weights)
 from yolov5_tpu_torch.models.yolo import DetectionModel
-from yolov5_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_from_maps
+from yolov5_tpu_torch.ops.nms import (detections_to_numpy, non_max_suppression,
+                                      non_max_suppression_from_maps)
+from yolov5_tpu_torch.utils import font
 from yolov5_tpu_torch.utils.checkpoint import load_checkpoint, variables_from_checkpoint
+from yolov5_tpu_torch.utils.general import increment_path
 
 # test-time augmentation: (scale, flip left-right) per pass (reference
 # models/yolo.py:269-312), and the value the scaled images are padded with
@@ -43,6 +56,49 @@ def tta_scale(x: torch.Tensor, ratio: float, gs: int) -> torch.Tensor:
     return F.pad(y, (0, nw - y.shape[3], 0, nh - y.shape[2]), value=TTA_PAD)
 
 
+def resolve_device(device, who):
+    """``device`` as a torch.device; a CUDA device where none is present
+    raises (no quiet fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device={device!r}): no CUDA device is available")
+    return dev
+
+
+def load_fused(weights, cfg, seed, model_cls, who):
+    """A ``model_cls`` (DetectionModel or SegmentationModel) with BN folded,
+    on the host, and its class names from a checkpoint's meta (or None).
+
+    ``weights`` is one of:
+      - None: seeded random weights;
+      - a reference ``.pt`` path;
+      - a ``.ckpt`` path written by the JAX package: its EMA weights when it
+        has them, and cfg, class names and anchors from its meta;
+      - a state_dict in the reference torch layout (fused or not; see
+        ``models.weights.from_jax_variables``)."""
+    names = anchors = None
+    if weights is None:
+        sd = model_cls(cfg, seed=seed).state_dict()
+    elif isinstance(weights, dict):
+        sd = weights
+    elif str(weights).endswith(".ckpt"):
+        payload, meta = load_checkpoint(weights)
+        cfg = meta.get("cfg", cfg)
+        anchors = meta.get("anchors")  # autoanchor may have evolved them
+        sd = from_jax_variables(variables_from_checkpoint(payload, prefer_ema=True))
+        names = {int(k): v for k, v in meta.get("names", {}).items()} or None
+    elif str(weights).endswith(".pt"):
+        sd = load_torch_state_dict(Path(weights))
+    else:
+        raise ValueError(f"{who}: weights must be None, a .pt or .ckpt path, or "
+                         f"a state_dict, got {weights!r}")
+    model = model_cls(cfg, fused=True, seed=seed, anchors=anchors)
+    missed = load_weights(model, fuse_conv_bn(sd))
+    if missed:
+        print(f"weight import: {len(missed)} unmatched entries")
+    return model, names
+
+
 def _class_filter(classes, nc):
     """A class id list -> an (nc,) bool keep-mask, or None."""
     if classes is None:
@@ -55,47 +111,19 @@ def _class_filter(classes, nc):
 class Detector:
     """Weights in, detections out.
 
-    ``weights`` is one of:
-      - None: seeded random weights;
-      - a reference ``.pt`` path;
-      - a ``.ckpt`` path written by the JAX package: its EMA weights when it
-        has them, and cfg, class names and anchors from its meta;
-      - a state_dict in the reference torch layout (fused or not; see
-        ``models.weights.from_jax_variables``).
-    Several weights make an ``Ensemble``: see ``ensemble``. BN is folded at
-    load. ``half`` runs the model in bfloat16. It runs on the card unless
-    ``device`` says otherwise (``device="cpu"``), and raises where no card is
-    present."""
+    ``weights`` as ``load_fused`` takes them (BN is folded at load); several
+    weights make an ``Ensemble``: see ``ensemble``. ``half`` runs the model in
+    bfloat16. It runs on the card unless ``device`` says otherwise
+    (``device="cpu"``), and raises where no card is present."""
 
     def __init__(self, weights=None, cfg="yolov5s", imgsz=640, half=False,
                  device="cuda", seed=0):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Detector(device={device!r}): no CUDA device is available")
+        self.device = resolve_device(device, "Detector")
         self.dtype = torch.bfloat16 if half else torch.float32
-        names = anchors = None
-        if weights is None:
-            sd = DetectionModel(cfg, seed=seed).state_dict()
-        elif isinstance(weights, dict):
-            sd = weights
-        elif isinstance(weights, (list, tuple)):
+        if isinstance(weights, (list, tuple)):
             raise ValueError("Detector: several weights make an Ensemble; build it "
                              "with yolov5_tpu_torch.infer.ensemble(weights, ...)")
-        elif str(weights).endswith(".ckpt"):
-            payload, meta = load_checkpoint(weights)
-            cfg = meta.get("cfg", cfg)
-            anchors = meta.get("anchors")  # autoanchor may have evolved them
-            sd = from_jax_variables(variables_from_checkpoint(payload, prefer_ema=True))
-            names = {int(k): v for k, v in meta.get("names", {}).items()} or None
-        elif str(weights).endswith(".pt"):
-            sd = load_torch_state_dict(Path(weights))
-        else:
-            raise ValueError(f"Detector: weights must be None, a .pt or .ckpt path, or "
-                             f"a state_dict, got {weights!r}")
-        model = DetectionModel(cfg, fused=True, seed=seed, anchors=anchors)
-        missed = load_weights(model, fuse_conv_bn(sd))
-        if missed:
-            print(f"weight import: {len(missed)} unmatched entries")
+        model, names = load_fused(weights, cfg, seed, DetectionModel, "Detector")
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
         self.names = names or model.names
@@ -214,3 +242,286 @@ def ensemble(weights_list, **kw):
     attempt_load with a list, models/experimental.py:60-101); ``kw`` go to
     every Detector."""
     return Ensemble([Detector(w, **kw) for w in weights_list])
+
+
+# ---------------------------------------------------------------------------
+# Annotation (numpy; cv2.rectangle / cv2.putText in the JAX package)
+# ---------------------------------------------------------------------------
+
+# a readable default palette (BGR) for annotation
+_PALETTE = [
+    (56, 56, 255), (151, 157, 255), (31, 112, 255), (29, 178, 255),
+    (49, 210, 207), (10, 249, 72), (23, 204, 146), (134, 219, 61),
+    (52, 147, 26), (187, 212, 0), (168, 153, 44), (255, 194, 0),
+    (147, 69, 52), (255, 115, 100), (236, 24, 0), (255, 56, 132),
+    (133, 0, 82), (255, 56, 203), (200, 149, 255), (199, 55, 255),
+]
+
+
+def color_for(cls_id):
+    return _PALETTE[int(cls_id) % len(_PALETTE)]
+
+
+def _draw_outline(im, p1, p2, color, lw):
+    """The outline of the box p1-p2 (integer corners) at line width lw: every
+    pixel whose centre lies within r of the rectangle's border, r = 1/2 for
+    lw = 1 and (lw + 1) / 2 above (the pixels that ``cv2.rectangle(...,
+    lw, LINE_AA)`` colours fully, rounded outer corners included). Drawn
+    strip by strip around the four sides, clipped to the image."""
+    h, w = im.shape[:2]
+    (x1, x2), (y1, y2) = sorted((p1[0], p2[0])), sorted((p1[1], p2[1]))
+    r = 0.5 if lw <= 1 else (lw + 1) / 2
+    e = int(np.ceil(r))
+    for ya, yb, xa, xb in ((y1 - e, y1 + e, x1 - e, x2 + e), (y2 - e, y2 + e, x1 - e, x2 + e),
+                           (y1 - e, y2 + e, x1 - e, x1 + e), (y1 - e, y2 + e, x2 - e, x2 + e)):
+        ya, yb, xa, xb = max(ya, 0), min(yb + 1, h), max(xa, 0), min(xb + 1, w)
+        if ya >= yb or xa >= xb:
+            continue
+        ys = np.arange(ya, yb, dtype=np.float64)[:, None]
+        xs = np.arange(xa, xb, dtype=np.float64)[None, :]
+        dx = np.maximum(np.maximum(x1 - xs, xs - x2), 0.0)
+        dy = np.maximum(np.maximum(y1 - ys, ys - y2), 0.0)
+        inside = np.minimum(np.minimum(xs - x1, x2 - xs), np.minimum(ys - y1, y2 - ys))
+        d = np.where((dx > 0) | (dy > 0), np.hypot(dx, dy), inside)
+        im[ya:yb, xa:xb][d <= r] = color
+
+
+def _fill(im, p1, p2, color):
+    """Fill the box p1-p2, corners included, clipped to the image."""
+    h, w = im.shape[:2]
+    (x1, x2), (y1, y2) = sorted((p1[0], p2[0])), sorted((p1[1], p2[1]))
+    im[max(y1, 0):min(y2 + 1, h), max(x1, 0):min(x2 + 1, w)] = color
+
+
+def annotate(im, boxes, scores, classes, names, line_width=None,
+             hide_labels=False, hide_conf=False):
+    """Draw boxes + labels on a BGR image in place: the JAX package's
+    layout (palette, line width, the label bar above the box where it fits
+    and inside it otherwise, white text), drawn with numpy and the bitmap
+    font of ``utils/font.py`` (glyphs ``line_width`` pixels a dot)."""
+    lw = line_width or max(round(sum(im.shape) / 2 * 0.003), 2)
+    for box, score, cls in zip(boxes, scores, classes):
+        c = color_for(cls)
+        p1, p2 = (int(box[0]), int(box[1])), (int(box[2]), int(box[3]))
+        _draw_outline(im, p1, p2, c, lw)
+        if hide_labels:
+            continue
+        label = (f"{names.get(int(cls), int(cls))}" if hide_conf else
+                 f"{names.get(int(cls), int(cls))} {score:.2f}")
+        w, h = font.text_size(label, lw)
+        outside = p1[1] - h >= 3
+        p2t = (p1[0] + w, p1[1] - h - 3 if outside else p1[1] + h + 3)
+        _fill(im, p1, p2t, c)
+        font.put_text(im, label, (p1[0], p1[1] - 2 if outside else p1[1] + h + 2), lw,
+                      (255, 255, 255))
+    return im
+
+
+def save_one_box(box, im0, path, gain=1.02, pad=10):
+    """Crop a detection (xyxy) from the original image with margin and save
+    (reference utils/plots.py save_one_box: gain 1.02, pad 10px, clipped)."""
+    h0, w0 = im0.shape[:2]
+    x1, y1, x2, y2 = box
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    bw = (x2 - x1) * gain + 2 * pad
+    bh = (y2 - y1) * gain + 2 * pad
+    x1 = int(max(cx - bw / 2, 0)); x2 = int(min(cx + bw / 2, w0))
+    y1 = int(max(cy - bh / 2, 0)); y2 = int(min(cy + bh / 2, h0))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    imwrite(path, im0[y1:y2, x1:x2])
+
+
+# ---------------------------------------------------------------------------
+# The detect run
+# ---------------------------------------------------------------------------
+
+# weights the JAX package runs through exported backends (ROADMAP item 9)
+_EXPORTED = ("_saved_model", ".tflite", ".pb", ".onnx")
+
+
+def _source_iter(source, imgsz, vid_stride):
+    s = str(source)
+    if s.startswith("screen"):
+        from yolov5_tpu_torch.data.sources import LoadScreenshots
+
+        return LoadScreenshots(s, img_size=imgsz)
+    if s.isnumeric() or s.startswith(("rtsp://", "rtmp://")) or s.endswith(".streams"):
+        from yolov5_tpu_torch.data.sources import LoadStreams
+
+        return LoadStreams(Path(s).read_text().split() if s.endswith(".streams") else s,
+                           img_size=imgsz)
+    return LoadImages(source, img_size=imgsz, vid_stride=vid_stride)
+
+
+def _show(path, im, state):
+    """--view-img: show one frame; without OpenCV or a display, say so once
+    and stop showing (``state["view"]`` turns False)."""
+    try:
+        import cv2
+
+        cv2.imshow(str(path), im)
+        cv2.waitKey(1)
+    except ImportError:
+        state["view"] = False
+        print("--view-img: OpenCV (cv2) is not installed, disabled")
+    except cv2.error:
+        state["view"] = False  # headless: warn once, keep going
+        print("--view-img: no display available, disabled")
+
+
+def _read_ahead(source_iter, batch_size, pin):
+    """Start a thread that reads and letterboxes the source a few batches
+    ahead. Returns its queue of (group, uint8 (bs, s, s, 3) batch) items,
+    ended by None; a failure in the thread is re-raised by ``drain``."""
+    q: queue.Queue = queue.Queue(maxsize=3)
+    failure = []
+
+    def read():
+        try:
+            for g in batched(source_iter, batch_size):
+                ims = torch.from_numpy(np.stack([x[1] for x in g]))
+                q.put((g, ims.pin_memory() if pin else ims))
+        except Exception as e:  # handed to the main thread
+            failure.append(e)
+        finally:
+            q.put(None)
+
+    def drain():
+        while (item := q.get()) is not None:
+            yield item
+        if failure:
+            raise failure[0]
+
+    threading.Thread(target=read, daemon=True).start()
+    return drain()
+
+
+def run(weights=None, source="", cfg="yolov5s", imgsz=640, conf_thres=0.25,
+        iou_thres=0.45, max_det=1000, classes=None, agnostic_nms=False,
+        save_txt=False, save_conf=False, save_img=True, project="runs/detect",
+        name="exp", exist_ok=False, line_thickness=None, batch_size=1,
+        half=False, verbose=True, augment=False, data=None, hide_labels=False,
+        hide_conf=False, save_crop=False, save_csv=False, vid_stride=1,
+        view_img=False, dnn=False, device="cuda"):
+    """Detect over a source; save annotated images / label txts. Returns
+    (results, save_dir), results the list of (path, detections (n, 6)
+    [x1, y1, x2, y2, conf, cls] on the source image), one per image of
+    every batch (a short last batch is padded by repeating its last image).
+
+    ``weights``: None or "" (seeded random), a .pt or .ckpt path, or a
+    state_dict, as ``Detector`` takes them. Runs on ``device`` (default the
+    card; raises where there is none)."""
+    w = str(weights or "")
+    if dnn or w.endswith(_EXPORTED) or w.startswith(("triton+http://", "triton+https://")):
+        raise NotImplementedError(
+            f"detect: {'--dnn' if dnn else w}: exported backends (ONNX, OpenCV DNN, TF, "
+            "remote) are not ported yet (ROADMAP Open items 1, item 9)")
+    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
+    (save_dir / "labels").mkdir(exist_ok=True)
+    det = Detector(weights if isinstance(weights, dict) else (weights or None), cfg=cfg,
+                   imgsz=imgsz, half=half, device=device)
+    if data:  # class names from a dataset yaml (reference --data role)
+        import yaml
+
+        names = yaml.safe_load(Path(data).read_text()).get("names")
+        if names:
+            det.names = {int(k): v for k, v in (names.items()
+                         if isinstance(names, dict) else enumerate(names))}
+    det.warmup(batch_size)
+    batches = _read_ahead(_source_iter(source, imgsz, vid_stride), batch_size,
+                          pin=det.device.type == "cuda")
+
+    # Three stages overlap: the reader thread letterboxes ahead, the main
+    # thread enqueues batch i's forward + NMS on the device and only then
+    # copies batch i-1's detections to the host (the one synchronisation),
+    # and the host post-processes batch i-1 while the device runs batch i.
+    def staged():
+        pending = None
+        for group, ims in batches:
+            dets = det(ims, conf_thres, iou_thres, max_det, classes, agnostic_nms,
+                       augment=augment)
+            if pending is not None:
+                yield pending[0], detections_to_numpy(pending[1])
+            pending = (group, dets)
+        if pending is not None:
+            yield pending[0], detections_to_numpy(pending[1])
+
+    results = []
+    csv_rows = []  # (image, prediction, confidence) — reference --save-csv
+    vid_writers = {}  # source path -> cv2.VideoWriter (reference detect.py:286-310)
+    show = {"view": view_img}
+    t_total = 0.0
+    t_wall0 = time.perf_counter()
+    for group, rows in staged():
+        t_total = time.perf_counter() - t_wall0
+        for (path, im_lb, im0, meta), r in zip(group, rows):
+            if len(r):
+                r = np.asarray(r)
+                r[:, :4] = scale_boxes_np(im_lb.shape[:2], r[:, :4], im0.shape[:2])
+            results.append((path, r))
+            if verbose:
+                counts = {}
+                for c in r[:, 5].astype(int):
+                    counts[c] = counts.get(c, 0) + 1
+                desc = ", ".join(f"{n} {det.names.get(c, c)}" for c, n in counts.items())
+                print(f"{path}: {len(r)} dets  {desc}")
+            mode = meta.get("mode", "image")
+            stem = Path(path).stem
+            # per-frame txt names for videos/streams (reference detect.py:188)
+            frame_tag = "" if mode == "image" else f"_{meta.get('frame', 0)}"
+            if save_txt and len(r):
+                h0, w0 = im0.shape[:2]
+                lines = []
+                for *xyxy, conf, cls in r:
+                    x1, y1, x2, y2 = xyxy
+                    row = [int(cls), (x1 + x2) / 2 / w0, (y1 + y2) / 2 / h0,
+                           (x2 - x1) / w0, (y2 - y1) / h0]
+                    if save_conf:
+                        row.append(conf)
+                    lines.append(" ".join(f"{v:.6g}" for v in row))
+                (save_dir / "labels" / f"{stem}{frame_tag}.txt").write_text(
+                    "\n".join(lines) + "\n")
+            if save_csv:
+                for *xyxy, conf, cls in r:
+                    csv_rows.append((Path(path).name, det.names.get(int(cls), int(cls)),
+                                     f"{conf:.2f}"))
+            if save_crop:
+                for j, (*xyxy, conf, cls) in enumerate(r):
+                    cname = str(det.names.get(int(cls), int(cls)))
+                    save_one_box(xyxy, im0, save_dir / "crops" / cname /
+                                 f"{stem}{frame_tag}_{j}.jpg")
+            if save_img or show["view"]:
+                im_out = im0.copy()
+                annotate(im_out, r[:, :4], r[:, 4], r[:, 5], det.names, line_thickness,
+                         hide_labels=hide_labels, hide_conf=hide_conf)
+                if show["view"]:
+                    _show(path, im_out, show)
+            if save_img:
+                if mode == "image":
+                    imwrite(save_dir / Path(path).name, im_out)
+                else:  # one VideoWriter per source: annotated mp4 out
+                    writer = vid_writers.get(path)
+                    if writer is None:
+                        import cv2  # a video source has loaded it already
+
+                        h0, w0 = im_out.shape[:2]
+                        safe = stem if mode == "video" else f"stream{meta.get('stream', 0)}"
+                        writer = cv2.VideoWriter(
+                            str(save_dir / f"{safe}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                            float(meta.get("fps") or 30.0), (w0, h0))
+                        vid_writers[path] = writer
+                    writer.write(im_out)
+    for writer in vid_writers.values():
+        writer.release()
+    if save_csv and csv_rows:
+        import csv
+
+        with open(save_dir / "predictions.csv", "w", newline="") as f:
+            wcsv = csv.writer(f)
+            wcsv.writerow(["Image Name", "Prediction", "Confidence"])
+            wcsv.writerows(csv_rows)
+    if verbose:
+        n = max(len(results), 1)
+        print(f"done: {len(results)} images, {1000 * t_total / n:.3f} ms/img "
+              f"(pipelined decode+forward+NMS wall), results in {save_dir}")
+    return results, save_dir

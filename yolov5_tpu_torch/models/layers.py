@@ -2,14 +2,15 @@
 
 The port of the canonical path of ``yolov5_tpu/models/layers.py``: Conv
 (plain with BN, or ``fused`` with BN folded into a conv bias), Bottleneck, C3,
-SPPF, Concat, Upsample (nearest) and Detect, plus ``decode_level`` /
-``decode``. Attribute names follow the reference's torch modules, so a
+SPPF, Concat, Upsample (nearest), Detect, and the segmentation head (Proto,
+Segment), plus ``decode_level`` / ``decode``. Attribute names follow the reference's torch modules, so a
 state_dict key reads ``model.{i}.cv1.conv.weight`` (OIHW).
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, whose
 storage is NHWC like the JAX package's arrays. Detect returns the JAX
 layout, (bs, ny, nx, na, no), as a view of its channels_last conv output,
-in training and in inference alike: the loss reads the raw maps.
+in training and in inference alike: the loss reads the raw maps. Segment
+returns ``(maps, proto)`` with ``proto`` (bs, hm, wm, nm), also a view.
 
 In train mode BN follows flax, not ``torch.nn.BatchNorm2d``: it normalizes
 with the batch's biased variance and moves the running variance with that
@@ -150,14 +151,31 @@ class Upsample(nn.Module):
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
 
 
+class Proto(nn.Module):
+    """Mask prototypes: Conv 3x3 -> nearest upsample x2 -> Conv 3x3 -> Conv
+    1x1 to ``c2`` prototypes (reference models/common.py:1104-1117)."""
+
+    def __init__(self, c1, c_=256, c2=32, fused=False):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3, fused=fused)
+        self.up = Upsample(2)
+        self.cv2 = Conv(c_, c_, 3, fused=fused)
+        self.cv3 = Conv(c_, c2, 1, fused=fused)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.up(self.cv1(x))))
+
+
 class Detect(nn.Module):
     """Anchor-based detection head: one 1x1 conv per level, each output
-    returned as raw logits (bs, ny, nx, na, no)."""
+    returned as raw logits (bs, ny, nx, na, no), no = nc + 5 + nm (nm mask
+    coefficients, 0 for detection)."""
 
-    def __init__(self, nc, anchors, ch):
+    def __init__(self, nc, anchors, ch, nm=0):
         super().__init__()
         self.nc = nc
-        self.no = nc + 5
+        self.nm = nm
+        self.no = nc + 5 + nm
         self.na = len(anchors[0])
         self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
 
@@ -169,6 +187,19 @@ class Detect(nn.Module):
             # channels_last storage is (b, ny, nx, na*no): a view, no copy
             outs.append(y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no))
         return outs
+
+
+class Segment(Detect):
+    """Detect with ``nm`` mask coefficients per anchor, and Proto on the first
+    level's features (reference models/yolo.py:131-150). Returns ``(maps,
+    proto)``, proto (bs, hm, wm, nm) as a view of its channels_last output."""
+
+    def __init__(self, nc, anchors, ch, nm=32, npr=256, fused=False):
+        super().__init__(nc, anchors, ch, nm)
+        self.proto = Proto(ch[0], npr, nm, fused=fused)
+
+    def forward(self, xs):
+        return super().forward(xs), self.proto(xs[0]).permute(0, 2, 3, 1)
 
 
 def decode_level(y, anchors_px, stride, dtype=torch.float32, nc=None):

@@ -5,7 +5,9 @@ State dicts use the reference torch key layout (``model.{i}.cv1.conv.weight``,
 OIHW), the layout ``yolov5_tpu/models/weights.py::torch_key_to_flax`` maps
 from; ``from_jax_variables`` is its inverse and ``to_jax_variables`` the
 inverse of that, so both packages can be fed the same weights and the
-checkpoint writer can write the JAX layout.
+checkpoint writer can write the JAX layout. A Segment head's keys
+(``model.24.m.0.weight``, ``model.24.proto.cv1.conv.weight``) map like any
+other, so the reference's segmentation ``.pt`` loads directly.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ their originals on every bundled config; the configs themselves are read by
 path from ``yolov5_tpu/models/configs``. ``DetectionModel`` is an
 ``nn.Module`` that executes the parsed layer list with the reference's
 save-list, probes its strides with a real forward, and draws seeded
-torch-style initial weights.
+torch-style initial weights; with a Segment head it returns ``(maps,
+proto)``, and ``SegmentationModel`` names that case.
 """
 
 from __future__ import annotations
@@ -231,6 +232,8 @@ def _build_module(spec: LayerSpec, c_in: list, fused: bool) -> nn.Module:
         return L.Upsample(spec.args[0])
     if spec.module == "Detect":
         return L.Detect(spec.args[0], spec.args[1], c_in)
+    if spec.module == "Segment":
+        return L.Segment(spec.args[0], spec.args[1], c_in, fused=fused, **dict(spec.kwargs))
     if spec.module not in _REGISTRY:
         raise NotImplementedError(f"layer {spec.i}: module {spec.module} is not ported")
     return _REGISTRY[spec.module](c_in[0], *spec.args, fused=fused, **dict(spec.kwargs))
@@ -252,7 +255,9 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
 
 
 class DetectionModel(nn.Module):
-    """Detection model built from a YAML config (reference models/yolo.py)."""
+    """Detection model built from a YAML config (reference models/yolo.py).
+    Its forward gives the raw maps, or ``(maps, proto)`` under a Segment
+    head."""
 
     def __init__(self, cfg="yolov5s", ch=3, nc=None, fused=False, seed=0, anchors=None):
         """``anchors`` (YAML-style flat lists per level, as a checkpoint's
@@ -271,7 +276,7 @@ class DetectionModel(nn.Module):
             _build_module(s, [chs[s.i if j == -1 else j + 1] for j in s.frm], fused)
             for s in self.specs)
         head = self.specs[-1]
-        if head.module != "Detect":
+        if head.module not in ("Detect", "Segment"):
             raise NotImplementedError(f"head {head.module} is not ported")
         _init_weights(self, torch.Generator().manual_seed(seed))
 
@@ -280,6 +285,8 @@ class DetectionModel(nn.Module):
         with torch.no_grad():
             x = torch.zeros(1, ch, s, s).contiguous(memory_format=torch.channels_last)
             maps = self.forward(x)
+        if head.module == "Segment":
+            maps = maps[0]
         self.stride = tuple(int(s / m.shape[1]) for m in maps)
         self.anchors = check_anchor_order(head.args[1], self.stride)
         self._init_detect_biases()
@@ -294,7 +301,8 @@ class DetectionModel(nn.Module):
 
     def _init_detect_biases(self):
         """Focal-style prior on the Detect biases: obj ~ log(8 / (640/s)²),
-        cls ~ log(0.6 / (nc - 0.99999))."""
+        cls ~ log(0.6 / (nc - 0.99999)); a Segment head's nm coefficient
+        biases stay as drawn."""
         det = self.model[-1]
         with torch.no_grad():
             for conv, s in zip(det.m, self.stride):
@@ -315,3 +323,16 @@ class DetectionModel(nn.Module):
             if spec.i in self.save:
                 saved[spec.i] = out
         return out
+
+
+class SegmentationModel(DetectionModel):
+    """A DetectionModel whose config ends in a Segment head: its forward
+    gives ``(maps, proto)``, maps [(bs, ny, nx, na, 5 + nc + nm)] and proto
+    (bs, hm, wm, nm) (the JAX package's ``SegmentationModel``)."""
+
+    def __init__(self, cfg="yolov5s-seg", **kw):
+        super().__init__(cfg, **kw)
+        if self.specs[-1].module != "Segment":
+            raise ValueError(f"SegmentationModel: {cfg} has a {self.specs[-1].module} head, "
+                             "not Segment")
+        self.nm = self.model[-1].nm
