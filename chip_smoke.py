@@ -55,6 +55,21 @@ Phases, one line each:
      last.ckpt giving epoch 3's losses of the uninterrupted run;
  12. train times: ms per b32 step with and without device augmentation,
      device augmentation alone, img/s, peak memory, one profiler line;
+ 16. train_host (run after 12, before 13): 128 train BMPs whose long side is not
+     640 (32 each of 375x500, 600x800, 720x1280, 640x427; half labelled by
+     polygons, so that copy-paste runs) and 32 such val BMPs (the loader's
+     area and linear resizes, with numpy); train.run for yolov5s at 640 px,
+     b32, bf16 autocast, hyp scratch-high (mosaic, mixup 0.1, copy-paste 0.1),
+     host augmentation in min(16, cpu count) worker processes and the
+     prefetcher, 2 epochs of 4 steps: finite losses, both launch counters
+     rising in each epoch's validation, last.ckpt and best.ckpt written,
+     val.run on best.ckpt giving that epoch's metrics; one epoch each of
+     --quad, --multi-scale (host), --multi-scale --device-aug --cache device
+     and --rect, two of --image-weights, each with finite losses; the
+     loader's img/s alone, the numpy warp and resize per image, the step fed
+     from host batches through the prefetcher (CUDA events, the copy
+     included) beside the step on a batch already on the card, and one
+     profiler line over 3 such steps;
  13. detect: infer.run (what the detect CLI calls) for yolov5s at 640 px, b32,
      bf16, over 32 of the val BMPs with seeded random weights whose BN
      statistics are the images' own (so detections depend on the image),
@@ -90,6 +105,7 @@ import contextlib
 import io
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -115,6 +131,11 @@ TRAIN_EPOCHS = 3
 # uninterrupted run: equal but for the card's nondeterministic float sums
 # (atomics in the backward), which four steps cannot grow past this
 RESUME_RTOL = 1e-3
+# phase 16: images whose long side is not 640, so that the loader resizes
+HOST_SHAPES = ((375, 500), (600, 800), (720, 1280), (640, 427))
+HOST_TRAIN_IMAGES = 128
+HOST_VAL_IMAGES = 32
+HOST_WORKERS = min(16, os.cpu_count() or 1)
 # phases 13-15: the first SMOKE_SOURCES val BMPs, and the mean of the Detect
 # biases of their weights (20-80 detections an image at conf 0.25)
 SMOKE_SOURCES = 32
@@ -620,10 +641,12 @@ def nms_bound_ms(boxes, scores, thres, max_det):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_iou
 
 
-def write_split(root, split, n, seed):
-    """n BMPs with 1-6 filled rectangles each, on a noisy background, one per
-    cell of a 3x2 grid so that no two overlap, and their YOLO labels, under
-    images/<split> and labels/<split>. Returns the number of labels."""
+def write_split(root, split, n, seed, shapes=VAL_SHAPES, polygons=False):
+    """n BMPs of the (h, w) ``shapes`` in turn with 1-6 filled rectangles
+    each, on a noisy background, one per cell of a 3x2 grid so that no two
+    overlap, and their YOLO labels (with ``polygons``, every second image's
+    as the rectangles' corner polygons), under images/<split> and
+    labels/<split>. Returns the number of labels."""
     from yolov5_tpu_torch.data.imageio import imwrite
 
     root = Path(root)
@@ -632,7 +655,7 @@ def write_split(root, split, n, seed):
     rng = np.random.default_rng(seed)
     n_labels = 0
     for i in range(n):
-        h, w = VAL_SHAPES[i % len(VAL_SHAPES)]
+        h, w = shapes[i % len(shapes)]
         im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
         rows = []
         for cell in rng.permutation(6)[:rng.integers(1, 7)]:
@@ -643,8 +666,12 @@ def write_split(root, split, n, seed):
             x1, y1 = x0 + int(bw), y0 + int(bh)
             c = int(rng.integers(0, VAL_CLASSES))
             im[y0:y1, x0:x1] = ((90, 200, 40), (230, 60, 120), (40, 120, 250))[c]
-            rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
-                        f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
+            if polygons and i % 2 == 0:
+                rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in (
+                    (x0, y0), (x1, y0), (x1, y1), (x0, y1))))
+            else:
+                rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
+                            f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
         imwrite(root / "images" / split / f"{i:04d}.bmp", im)
         (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
         n_labels += len(rows)
@@ -1042,6 +1069,207 @@ def phase_train_times(dev, data, smi):
           f"host enqueue {host:.3f} ms/step; peak memory {peak / 2 ** 30:.2f} GiB | {smi}")
     print(profile_line(lambda: step(state, {"idx": idx}, cache),
                        f"train step b{BATCH} {IMGSZ}px with device augmentation", smi))
+
+
+def phase_train_host_data(root):
+    """Phase 16's train and val splits (HOST_SHAPES, half the train images
+    labelled by polygons) beside the others, and their YAML."""
+    t0 = time.perf_counter()
+    root = Path(root)
+    n_train = write_split(root, "train_host", HOST_TRAIN_IMAGES, seed=5, shapes=HOST_SHAPES,
+                          polygons=True)
+    n_val = write_split(root, "val_host", HOST_VAL_IMAGES, seed=6, shapes=HOST_SHAPES)
+    data = root / "train_host.yaml"
+    names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
+    data.write_text(f"path: {root}\ntrain: images/train_host\nval: images/val_host\n"
+                    f"nc: {VAL_CLASSES}\nnames: [{names}]\n")
+    print(f"train_host data: {HOST_TRAIN_IMAGES} train BMPs ({n_train} labels, half the images "
+          f"as polygons) and {HOST_VAL_IMAGES} val BMPs ({n_val} labels) of (h, w) "
+          f"{HOST_SHAPES}, in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def _finite_losses(save_dir, epochs, what):
+    rows = _csv_rows(save_dir)
+    losses = [[float(r[f"train/{k}"]) for k in ("box", "obj", "cls", "total")] for r in rows]
+    if len(rows) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"train_host {what}: {len(rows)} epochs, losses {losses}")
+    return losses
+
+
+def phase_train_host(dev, data, root, smi):
+    """train.run with host augmentation: the counted run (yolov5s 640 b32 bf16,
+    scratch-high, 2 epochs of 4 steps, EMA validation through K1/K2), val.run
+    on its best.ckpt, and a short run of each training option."""
+    from yolov5_tpu_torch.eval import evaluator
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+    from yolov5_tpu_torch.train.run import run
+    from yolov5_tpu_torch.utils.callbacks import Callbacks
+
+    counts = lambda: (stem_conv.launches, greedy_nms.launches)
+    marks = []  # (epoch, counts after training, counts after validation)
+    cb = Callbacks()
+    cb.register_action("on_train_epoch_end", callback=lambda epoch: marks.append(
+        [epoch, counts()]))
+    cb.register_action("on_fit_epoch_end", callback=lambda epoch, fitness: marks[-1].append(
+        counts()))
+    kw = dict(data=str(data), cfg="yolov5s", hyp="scratch-high", batch_size=BATCH,
+              imgsz=IMGSZ, device_aug=False, workers=HOST_WORKERS, device=dev,
+              project=str(Path(root) / "runs"), exist_ok=True)
+
+    # the counted run of the host-augmented training path
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    best_fitness, _, save_dir = run(**kw, epochs=2, name="host", callbacks=cb)
+    wall = time.perf_counter() - t0
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    losses = _finite_losses(save_dir, 2, "counted run")
+    rose = [[v - t for v, t in zip(a, b)] for _, b, a in marks]
+    if len(rose) != 2 or min(min(r) for r in rose) < 1:
+        raise AssertionError(f"train_host: launches in per-epoch val {rose} (stem, nms)")
+    for name in ("last.ckpt", "best.ckpt"):
+        if not (save_dir / name).exists():
+            raise AssertionError(f"train_host: {name} not written")
+    speeds = [float(r["train/imgs_per_sec"]) for r in _csv_rows(save_dir)]
+    best_epoch = json.loads((save_dir / "best.ckpt.json").read_text())["epoch"]
+    again = evaluator.run(str(data), weights=str(save_dir / "best.ckpt"), imgsz=IMGSZ,
+                          batch_size=BATCH, half=True, rect=False, device=dev, verbose=False)
+    rows = _csv_rows(save_dir)
+    pairs = {k: (float(rows[best_epoch][f"val/{k}"]), again[k])
+             for k in ("mp", "mr", "map50", "map")}
+    if any(abs(a - b) > 1e-6 for a, b in pairs.values()):
+        raise AssertionError(f"train_host: val.run on best.ckpt {pairs} (training-time, val.run)")
+    print(f"train_host: yolov5s {IMGSZ}px bf16 b{BATCH}, hyp scratch-high, host augmentation "
+          f"in {HOST_WORKERS} worker processes (cpu count {os.cpu_count()}), 2 epochs x "
+          f"{HOST_TRAIN_IMAGES // BATCH} steps, {wall:.1f} s; losses (box, obj, cls, total) per "
+          f"epoch {np.round(losses, 5).tolist()}; train img/s per epoch (results.csv) "
+          f"{np.round(speeds, 2).tolist()}; launches in per-epoch val {rose} (stem, nms); "
+          f"val.run on best.ckpt (epoch {best_epoch + 1}, fitness {best_fitness:.6f}) "
+          f"reproduces its EMA validation | {smi}")
+
+    # each training option, briefly
+    options = {"--quad": ("quad", dict(quad=True)),
+               "--multi-scale (host)": ("ms_host", dict(multi_scale=True)),
+               "--multi-scale --device-aug --cache device": (
+                   "ms_device", dict(multi_scale=True, device_aug=True, cache="device")),
+               "--rect": ("rect", dict(rect=True)),
+               "--image-weights": ("image_weights", dict(image_weights=True, epochs=2))}
+    done = []
+    for name, (run_name, extra) in options.items():
+        # validation only where the option needs it (image weights act on its AP)
+        extra = {"epochs": 1, "noval": "epochs" not in extra, "nosave": True,
+                 "noautoanchor": True, **extra}
+        t0 = time.perf_counter()
+        with uncounted():
+            _, _, opt_dir = run(**{**kw, **extra}, name=run_name)
+        opt_losses = _finite_losses(opt_dir, extra["epochs"], name)
+        done.append(f"{name} {extra['epochs']} epoch(s) {time.perf_counter() - t0:.1f} s, "
+                    f"last total loss {opt_losses[-1][-1]:.5f}")
+    print("train_host options: " + "; ".join(done) + f" | {smi}")
+    return launches
+
+
+def _epochs_of(loader):
+    """The loader's batches, epoch after epoch, without end."""
+    for epoch in itertools.count():
+        loader.set_epoch(epoch)
+        yield from loader
+
+
+def phase_train_host_times(dev, data, smi):
+    """The host loader alone, the numpy warp and resize, and the yolov5s b32
+    step fed from host batches through the prefetcher, by CUDA events."""
+    import torch
+
+    from yolov5_tpu_torch.data import cv
+    from yolov5_tpu_torch.data.augment import augment_hsv
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.prefetch import prefetch
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.general import check_dataset
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+
+    hyp = load_hyp("scratch-high")
+    ds, loader = create_loader(check_dataset(str(data))["train"], img_size=IMGSZ,
+                               batch_size=BATCH, augment=True, hyp=hyp, workers=HOST_WORKERS)
+    try:
+        rates = []
+        for epoch in range(2):  # the first pass starts the workers, decodes and resizes
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            n = sum(len(b["images"]) for b in loader)
+            rates.append(n / (time.perf_counter() - t0))
+        rng = np.random.default_rng(0)
+        canvas = rng.integers(0, 256, (2 * IMGSZ, 2 * IMGSZ, 3), dtype=np.uint8)
+        M = np.array([[0.8, 0.0, -0.3 * IMGSZ], [0.0, 0.8, -0.25 * IMGSZ]])
+        big = rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+        small = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+        host_ms = {}
+        for name, fn in ((f"warp_affine {2 * IMGSZ}^2 -> {IMGSZ}^2", lambda: cv.warp_affine(
+                             canvas, M, (IMGSZ, IMGSZ))),
+                         ("resize 720x1280 -> 360x640 area", lambda: cv.resize(
+                             big, (640, 360), "area")),
+                         ("resize 375x500 -> 480x640 linear", lambda: cv.resize(
+                             small, (640, 480), "linear")),
+                         ("resize 600x800 -> 480x640 linear", lambda: cv.resize(
+                             big[:600, :800], (640, 480), "linear"))):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            host_ms[name] = 1e3 * (time.perf_counter() - t0) / 5
+        # where a worker's time goes: decode + resize, then whole augmented
+        # samples from the RAM cache, the HSV jitter and one pasted polygon
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds.load_image(i)
+        host_ms["read + resize (each image once)"] = 1e3 * (time.perf_counter() - t0) / len(ds)
+        t0 = time.perf_counter()
+        for i in range(16):
+            ds.get_item(i, np.random.default_rng(i))
+        host_ms["get_item (scratch-high, from RAM)"] = 1e3 * (time.perf_counter() - t0) / 16
+        im_s = canvas[:IMGSZ, :IMGSZ].copy()
+        poly = np.array([[100, 100], [700, 150], [650, 900], [120, 800]], np.int32)
+        for name, fn in ((f"augment_hsv {IMGSZ}^2", lambda: augment_hsv(
+                             im_s, 0.015, 0.7, 0.4, rng)),
+                         (f"fill_poly on the {2 * IMGSZ}^2 canvas", lambda: cv.fill_poly(
+                             np.zeros((2 * IMGSZ, 2 * IMGSZ), bool), poly, True))):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            host_ms[name] = 1e3 * (time.perf_counter() - t0) / 5
+        print(f"train_host times: loader alone {rates[0]:.1f} img/s (first epoch: worker "
+              f"start, decode and resize) and {rates[1]:.1f} img/s (second: RAM cache), b{BATCH}, "
+              f"{loader.workers} worker processes, cpu count {os.cpu_count()}; numpy per image "
+              f"(one host thread): " + ", ".join(f"{k} {v:.2f} ms" for k, v in host_ms.items())
+              + f" | {smi}")
+
+        model = DetectionModel("yolov5s", nc=VAL_CLASSES).to(dev).to(
+            memory_format=torch.channels_last)
+        scaled = scale_hyp(hyp, nl=3, nc=VAL_CLASSES, imgsz=IMGSZ)
+        state = init_train_state(model, Optimizer(dict(model.named_parameters()), scaled, 3,
+                                                  len(loader), BATCH))
+        step = make_train_step(ComputeLoss(model.anchors_per_stride, VAL_CLASSES, scaled),
+                               None, dtype=torch.bfloat16)
+        keys = ("images", "targets", "valid")
+        feed = prefetch(_epochs_of(loader), dev, depth=2,
+                        transform=lambda b: {k: b[k] for k in keys})
+        fed = cuda_ms(lambda: step(state, next(feed)), iters=8, warmup=2)
+        resident = next(feed)
+        alone = cuda_ms(lambda: step(state, resident), iters=5, warmup=1)
+        print(f"train_host step, yolov5s b{BATCH} {IMGSZ}px bf16, fed from host batches "
+              f"through the prefetcher: {fed:.3f} ms/step ({BATCH / fed * 1e3:.1f} img/s, CUDA "
+              f"events, the copy and any wait for the loader included); on a batch already on "
+              f"the card {alone:.3f} ms/step ({BATCH / alone * 1e3:.1f} img/s) | {smi}")
+        print(profile_line(lambda: step(state, next(feed)),
+                           f"train step b{BATCH} {IMGSZ}px fed from host batches", smi))
+        feed.close()
+    finally:
+        loader.close()
 
 
 def calibrated_weights(cfg, seed, images, dev):
@@ -1471,12 +1699,16 @@ def main():
         train_data = phase_train_data(root)
         train_launches = phase_train(dev, train_data, root, smi)
         phase_train_times(dev, train_data, smi)
+        host_data = phase_train_host_data(root)
+        host_launches = phase_train_host(dev, host_data, root, smi)
+        phase_train_host_times(dev, host_data, smi)
         weights, detect_launches = phase_detect(dev, root, smi)
         serve_launches = phase_serve(dev, root, weights, smi)
         segment_launches = phase_segment(dev, root, smi)
     per_call = launches  # one Detector call of the slice
-    launches = {k: n + val_launches[k] + train_launches[k] + detect_launches[k]
-                + serve_launches[k] + segment_launches[k] for k, n in launches.items()}
+    launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
+                + detect_launches[k] + serve_launches[k] + segment_launches[k]
+                for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],

@@ -368,6 +368,41 @@ def test_bf16_train_step_on_cuda(dev, tmp_path):
     assert state.ema.updates == 1 and state.step == 1
 
 
+def test_host_batches_through_the_prefetcher_on_cuda(dev, tmp_path):
+    """Host-augmented batches from two worker processes, copied by the
+    prefetcher (pinned memory, side stream): on the card they equal the
+    host's arrays, and a bf16 train step on them is finite."""
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.prefetch import prefetch
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.hyp import SCRATCH_LOW
+
+    data = _shapes_set(tmp_path)
+    kw = dict(img_size=160, batch_size=4, augment=True, hyp=SCRATCH_LOW, cache=False)
+    _, pooled = create_loader(str(data.parent / "images" / "train"), workers=2, **kw)
+    _, inline = create_loader(str(data.parent / "images" / "train"), workers=1, **kw)
+    model = DetectionModel("yolov5n", nc=2).to(dev).to(memory_format=torch.channels_last)
+    hyp = scale_hyp(SCRATCH_LOW, nl=3, nc=2, imgsz=160)
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), hyp, 3, 2, 64))
+    step = make_train_step(ComputeLoss(model.anchors_per_stride, 2, hyp), None,
+                           dtype=torch.bfloat16)
+    keys = ("images", "targets", "valid")
+    try:
+        fed = prefetch(iter(pooled), dev, transform=lambda b: {k: b[k] for k in keys})
+        for got, ref in zip(fed, inline):
+            assert all(got[k].device.type == "cuda" for k in keys)
+            for k in keys:
+                np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k])
+            state, metrics = step(state, got)
+            assert all(torch.isfinite(v).item() for v in metrics.values())
+    finally:
+        pooled.close()
+    assert state.step == len(inline) == 2
+
+
 def test_train_run_validates_with_the_kernels(dev, tmp_path):
     """train.run on the card: every epoch's EMA validation launches K2 and K1,
     and best.ckpt re-validates to the same metrics."""

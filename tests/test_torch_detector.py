@@ -96,7 +96,8 @@ def test_detector_defaults_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """yolov5_tpu_torch and chip_smoke load neither JAX nor yolov5_tpu."""
+    """yolov5_tpu_torch and chip_smoke load neither JAX nor yolov5_tpu, nor, on
+    import, OpenCV or PIL."""
     code = ("import sys, yolov5_tpu_torch, yolov5_tpu_torch.infer, "
             "yolov5_tpu_torch.data.letterbox, yolov5_tpu_torch._build, chip_smoke, "
             "yolov5_tpu_torch.eval.evaluator, yolov5_tpu_torch.data.dataset, "
@@ -104,9 +105,12 @@ def test_port_imports_no_jax():
             "yolov5_tpu_torch.detect, yolov5_tpu_torch.segment, yolov5_tpu_torch.serve, "
             "yolov5_tpu_torch.hub, yolov5_tpu_torch.results, yolov5_tpu_torch.infer_segment, "
             "yolov5_tpu_torch.data.sources, yolov5_tpu_torch.ops.masks, "
-            "yolov5_tpu_torch.utils.net, yolov5_tpu_torch.utils.font\n"
+            "yolov5_tpu_torch.utils.net, yolov5_tpu_torch.utils.font, "
+            "yolov5_tpu_torch.data.cv, yolov5_tpu_torch.data.augment, "
+            "yolov5_tpu_torch.train.run, yolov5_tpu_torch.train.prefetch, "
+            "yolov5_tpu_torch.train.evolve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'yolov5_tpu')]\n"
+            "'yolov5_tpu', 'cv2', 'PIL')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

@@ -205,6 +205,34 @@ def test_mosaic_matches_compose_then_warp_and_jax_mosaic_fused(rng):
     np.testing.assert_allclose(got_t.numpy(), np.asarray(ref_t), atol=1e-5)
 
 
+@pytest.mark.parametrize("scale", [0.5, 1.5])
+def test_mosaic_out_size_matches_jax_mosaic_fused(rng, scale):
+    """The multi-scale size folded into the warp (``out_size``): the image
+    against JAX ``mosaic_fused(out_size=...)`` within 3 levels, the labels
+    those of the base size."""
+    images, hw, targets, valid, idx, xc, yc, r, t = _mosaic_case(rng)
+    s = images.shape[1]
+    out = int(s * scale)
+    M = np.zeros((2, 3, 3), np.float32)
+    M[:, 0, 0] = M[:, 1, 1] = r
+    M[:, 0, 2], M[:, 1, 2], M[:, 2, 2] = t[:, 0] - r * s, t[:, 1] - r * s, 1.0
+    hw4 = hw[idx].astype(np.float32)
+    args = (torch.from_numpy(images), torch.from_numpy(targets[idx]),
+            torch.from_numpy(valid[idx]), torch.from_numpy(idx), torch.from_numpy(hw4),
+            torch.from_numpy(xc), torch.from_numpy(yc), torch.from_numpy(M), torch.from_numpy(r))
+    got_im, got_t, got_v = aug.mosaic_warp(*args, out_size=out)
+    _, base_t, base_v = aug.mosaic_warp(*args)
+    assert got_im.shape == (2, out, out, 3)
+    assert torch.equal(got_t, base_t) and torch.equal(got_v, base_v)
+    ref_im, ref_t, _ = jax_aug.mosaic_fused(
+        jnp.asarray(images), jnp.asarray(hw4), jnp.asarray(targets[idx]),
+        jnp.asarray(valid[idx]), jnp.asarray(idx.astype(np.int32)), jnp.asarray(xc),
+        jnp.asarray(yc), jnp.asarray(r), jnp.asarray(t), out_size=out)
+    d = np.abs(got_im.numpy().astype(int) - np.asarray(ref_im).astype(int))
+    assert d.max() <= 3 and d.mean() < 0.5, (d.max(), d.mean())
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(ref_t), atol=1e-5)
+
+
 def test_mosaic_probability_zero_is_letterbox(rng):
     """No mosaic, no scale, no translate: each image comes out letterboxed
     (centered, 114 border) with its own labels."""

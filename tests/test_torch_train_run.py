@@ -2,7 +2,9 @@
 generated BMP set, device augmentation, the device cache, per-epoch EMA
 validation, results.csv, last.ckpt and best.ckpt; best.ckpt re-validated
 by the port's val.run and read by the JAX package; resume equal to an
-uninterrupted run; the CLI; the options that are not ported."""
+uninterrupted run; the CLI with host augmentation (the worker pool and the
+prefetcher) and --evolve; rect, quad, multi-scale (host and device) and
+image weights; the option that is not ported."""
 
 import csv
 import json
@@ -133,13 +135,157 @@ def test_cli_trains_two_epochs(data_yaml, tmp_path):
     assert set(summary) >= {"best_fitness", "map50", "map"}
 
 
-@pytest.mark.parametrize("option", ["rect", "quad", "multi_scale", "image_weights",
-                                    "upload_dataset", "host_augmentation"])
+def _cli(args, cwd):
+    # one thread, as in the test processes (tests/torch_port_helpers.py)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-m", "yolov5_tpu_torch.train", "--device", "cpu",
+                          *args], capture_output=True, text=True, env=env, timeout=600, cwd=cwd)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_cli_trains_with_host_augmentation(data_yaml, tmp_path):
+    """The default path, as `python train.py` runs it: host mosaic,
+    copy-paste and mixup (scratch-high) in two worker processes, batches
+    copied ahead by the prefetcher."""
+    summary = _cli(["--data", str(data_yaml), "--cfg", "yolov5n", "--imgsz", "128",
+                    "--batch-size", "4", "--epochs", "2", "--hyp", "scratch-high", "--dtype",
+                    "float32", "--workers", "2", "--project", str(tmp_path / "runs"), "--name",
+                    "host"], tmp_path)
+    save_dir = Path(summary["save_dir"])
+    rows = _rows(save_dir)
+    assert [int(r["step"]) for r in rows] == [0, 1]
+    for r in rows:
+        assert all(np.isfinite(float(r[f"train/{k}"])) for k in ("box", "obj", "cls", "total"))
+    assert (save_dir / "last.ckpt").exists() and (save_dir / "best.ckpt").exists()
+    opt = yaml.safe_load((save_dir / "opt.yaml").read_text())
+    assert opt["device_aug"] is False and opt["workers"] == 2
+
+
+@pytest.mark.parametrize("option", ["rect", "quad", "multi_scale", "multi_scale_device",
+                                    "image_weights"])
+def test_training_options_run(data_yaml, tmp_path, option, monkeypatch):
+    """Two epochs with each option: finite losses, and the option reaches
+    what it changes: rect, no mosaic and the images in order; quad, 2s
+    batches and loss gain 4; multi-scale, a size drawn per batch, on the host
+    or in the device mosaic's warp; image weights, indices drawn by weight in
+    the second epoch."""
+    from yolov5_tpu_torch.data import dataset
+    from yolov5_tpu_torch.train import run as run_mod
+
+    seen = {"batches": [], "sizes": set(), "gain": set()}
+    build = dataset.Loader._build
+
+    def noted_build(self, *args, **kw):
+        batch = build(self, *args, **kw)
+        if self.ds.augment:  # the training loader's
+            seen["batches"].append((batch["images"].shape, list(batch["indices"]),
+                                    self.ds.hyp["mosaic"], self.weighted_indices is not None))
+        return batch
+
+    make_step, loss_cls = run_mod.make_train_step, run_mod.ComputeLoss
+
+    def sized_step(*args, ms_size=None, **kw):
+        inner = make_step(*args, ms_size=ms_size, **kw)
+
+        def step(state, batch, cache=None):
+            seen["sizes"].add(ms_size or batch["images"].shape[1])
+            return inner(state, batch, cache)
+
+        return step
+
+    def noted_loss(*args, gain=1.0, **kw):
+        seen["gain"].add(gain)
+        return loss_cls(*args, gain=gain, **kw)
+
+    monkeypatch.setattr(dataset.Loader, "_build", noted_build)
+    monkeypatch.setattr(run_mod, "make_train_step", sized_step)
+    monkeypatch.setattr(run_mod, "ComputeLoss", noted_loss)
+    device_aug = option == "multi_scale_device"
+    kw = _kw(data_yaml, tmp_path, option, device_aug=device_aug, workers=1)
+    kw["multi_scale" if option.startswith("multi_scale") else option] = True
+    _, _, save_dir = run(**kw)
+    rows = _rows(save_dir)
+    assert len(rows) == 2
+    for r in rows:
+        assert all(np.isfinite(float(r[f"train/{k}"])) for k in ("box", "obj", "cls", "total"))
+    assert seen["gain"] == {4.0 if option == "quad" else 1.0}
+    shapes = {shape for shape, *_ in seen["batches"]}
+    if option == "quad":
+        assert shapes == {(1, 256, 256, 3)}
+    elif option == "rect":  # square batches: the JAX package's rule
+        assert shapes == {(4, 128, 128, 3)}
+        assert {m for _, _, m, _ in seen["batches"]} == {0.0}
+        assert [i for _, idx, _, _ in seen["batches"][:3] for i in idx] == list(range(12))
+    elif option.startswith("multi_scale"):
+        assert len(seen["sizes"]) > 1 and seen["sizes"] <= {64, 96, 128, 160, 192}
+    else:
+        assert [w for *_, w in seen["batches"]] == [False] * 3 + [True] * 3
+
+
+def test_image_weights_act_from_the_second_epoch(data_yaml, tmp_path, monkeypatch):
+    from yolov5_tpu_torch.data import dataset
+
+    drawn = []
+    original = dataset.Loader.set_image_weights
+
+    def record(self, weights, epoch=0):
+        original(self, weights, epoch)
+        drawn.append((epoch, self.weighted_indices.copy()))
+
+    monkeypatch.setattr(dataset.Loader, "set_image_weights", record)
+    run(**_kw(data_yaml, tmp_path, "iw", epochs=3, image_weights=True, device_aug=False,
+              workers=1))
+    assert [e for e, _ in drawn] == [1, 2]
+    assert all(len(idx) == 12 for _, idx in drawn)
+
+
+def test_cli_evolve_mutates_as_jax(data_yaml, tmp_path):
+    """--evolve 2 --epochs 1: generation 0 trains the base hyps, generation 1
+    the JAX package's mutation of them from the same seed."""
+    from yolov5_tpu.train import evolve as jax_evolve
+    from yolov5_tpu.utils.hyp import load_hyp as jax_load_hyp
+
+    summary = _cli(["--data", str(data_yaml), "--cfg", "yolov5n", "--imgsz", "128",
+                    "--batch-size", "4", "--epochs", "1", "--evolve", "2", "--seed", "3",
+                    "--dtype", "float32", "--workers", "1", "--project",
+                    str(tmp_path / "runs" / "train"), "--name", "evo"], tmp_path)
+    evolve_dir = tmp_path / "runs" / "evolve" / "evo"
+    with open(evolve_dir / "evolve.csv") as f:
+        gens = list(csv.DictReader(f))
+    assert len(gens) == 2 and (evolve_dir / "hyp_evolve.yaml").exists()
+    rng = np.random.default_rng(3)
+    base = jax_load_hyp(None)
+    assert jax_evolve.select_parent([], rng) is None
+    parent = jax_evolve.select_parent([(float(gens[0]["fitness"]), base)], rng)
+    child = jax_evolve.mutate({**base, **parent}, rng)
+    for k in jax_evolve.META:
+        assert float(gens[0][k]) == base[k], k
+        assert float(gens[1][k]) == child[k], k
+    assert summary["best_fitness"] == max(float(g["fitness"]) for g in gens)
+
+
+@pytest.mark.parametrize("size", [64, 96, 160, 192])
+def test_ms_resize_matches_jax_image_resize(size):
+    """The train step's resize of a batch without the mosaic to its
+    multi-scale size: jax.image.resize(..., "linear") (antialiased when it
+    shrinks), +0.5 and truncated for uint8, within 1 level."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from yolov5_tpu_torch.train.trainer import resize_batch
+
+    im = np.random.default_rng(size).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    ref = jax.image.resize(jnp.asarray(im, jnp.float32), (2, size, size, 3), "linear")
+    ref = np.asarray(jnp.clip(ref + 0.5, 0, 255).astype(jnp.uint8))
+    got = resize_batch(torch.from_numpy(im), size).numpy()
+    assert got.shape == ref.shape and np.abs(got.astype(int) - ref).max() <= 1
+
+
+@pytest.mark.parametrize("option", ["upload_dataset"])
 def test_options_not_ported_raise(data_yaml, tmp_path, option):
     kw = _kw(data_yaml, tmp_path, "x")
-    if option == "host_augmentation":
-        kw["device_aug"] = False
-    else:
-        kw[option] = True
+    kw[option] = True
     with pytest.raises(NotImplementedError, match=option.split("_")[0]):
         run(**kw)

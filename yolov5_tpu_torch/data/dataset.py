@@ -1,33 +1,40 @@
 """YOLO-format dataset and fixed-shape batch loader.
 
-The port of ``yolov5_tpu/data/dataset.py`` without its host augmentation:
-image discovery, label parsing and verification, the hash-keyed label
-cache, ``YOLODataset``, and a ``Loader`` that yields rect batches
-(aspect-sorted, per-batch shapes), square letterboxed batches, or, for
-training with device augmentation, raw batches (each image resized long
-side = img_size into the top-left of its buffer) in a seeded per-epoch
-shuffle. Each batch is a dict of numpy arrays: ``images`` (bs, h, w, 3)
-uint8 RGB, ``targets`` (bs, max_labels, 5) [cls, x, y, w, h] normalized to
-the batch frame (raw batches: to the image content, with ``hw`` its size),
-``valid`` (bs, max_labels), ``real`` (images that are not padding),
-``indices`` and ``paths``.
+The port of ``yolov5_tpu/data/dataset.py``: image discovery, label parsing
+and verification, the hash-keyed label cache, ``YOLODataset`` with the
+reference's host augmentation (``load_mosaic`` with copy-paste, mixup,
+random_perspective, albumentations, HSV, flips: ``data.augment``), and a
+``Loader`` that yields rect batches (aspect-sorted, per-batch shapes),
+square letterboxed batches, host-augmented training batches (std or quad,
+in-process or from a pool of worker processes), or, for training with
+device augmentation, raw batches (each image resized long side = img_size
+into the top-left of its buffer), in a seeded per-epoch shuffle. Each batch
+is a dict of numpy arrays: ``images`` (bs, h, w, 3) uint8 RGB, ``targets``
+(bs, max_labels, 5) [cls, x, y, w, h] normalized to the batch frame (raw
+batches: to the image content, with ``hw`` its size), ``valid`` (bs,
+max_labels), ``real`` (images that are not padding), ``indices`` and
+``paths``.
 
-Images are read by ``data.imageio``: 24-bit BMP with numpy, anything else
-with OpenCV. Training augments on the device (``data.device_aug``); the host
-augmentation stack (``yolov5_tpu/data/augment.py``, ``load_mosaic``, the
-worker processes, quad batches) is not ported and raises
-``NotImplementedError``.
+Images are read by ``data.imageio`` (24-bit BMP with numpy, anything else
+with OpenCV) and resized by ``data.cv``: no path needs OpenCV for BMP
+input. The JAX package's per-rank shard, segmentation masks and native
+JPEG batches are not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+from yolov5_tpu_torch.data.augment import (Albumentations, augment_hsv, copy_paste, flip_lr,
+                                           flip_ud, mixup, random_perspective)
+from yolov5_tpu_torch.data.cv import resize
 from yolov5_tpu_torch.data.imageio import image_size, imread
 from yolov5_tpu_torch.data.letterbox import letterbox
 
@@ -190,31 +197,44 @@ def load_or_build_label_cache(im_files, label_files, workers=8):
     return keep, labels, shapes, segments, msgs
 
 
+DEFAULT_HYP = {
+    "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4,
+    "degrees": 0.0, "translate": 0.1, "scale": 0.5, "shear": 0.0,
+    "perspective": 0.0, "flipud": 0.0, "fliplr": 0.5,
+    "mosaic": 1.0, "mixup": 0.0, "copy_paste": 0.0,
+}
+
+
 class YOLODataset:
-    """Index-addressable dataset: letterboxed uint8 BGR images and their
-    labels (normalized xywh). ``cache``: None, "ram" (decoded images kept in
-    memory) or "disk" (a ``.npy`` of the decoded pixels beside each image,
-    read back with numpy). ``augment`` marks a training set, which resizes
-    with linear interpolation; its augmentation runs on the device
-    (``device_aug=True``): the host path is not ported."""
+    """Index-addressable dataset: (image uint8 BGR, labels normalized xywh,
+    segments in pixels) samples, with the reference's augmentation stack
+    for a training set (``augment``). ``hyp`` is merged over
+    ``DEFAULT_HYP``. ``cache``: None, "ram" (decoded images kept in memory)
+    or "disk" (a ``.npy`` of the decoded pixels beside each image, read back
+    with numpy). ``device_aug``: the device augments (``data.device_aug``),
+    so a host mosaic only composes and crops."""
+
+    def __getstate__(self):
+        # worker processes build their own RAM cache; shipping the parent's
+        # would copy every decoded image through the pickle pipe
+        state = dict(self.__dict__)
+        state["_ram"] = {}
+        return state
 
     def __init__(self, path, img_size=640, single_cls=False, cache=None, augment=False,
-                 device_aug=False):
-        if augment and not device_aug:
-            raise NotImplementedError(
-                "augmented loaders need device_aug=True: host-side augmentation "
-                "(yolov5_tpu/data/augment.py: load_mosaic, the augment stack, worker "
-                "processes) is not ported")
+                 device_aug=False, hyp=None):
         self.img_size = img_size
         self.augment = augment
+        self.device_aug = device_aug
         self.cache = cache
         self._ram: dict = {}
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}
         self.single_cls = single_cls
         self.im_files = find_images(path)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {path}")
         self.label_files = img2label_paths(self.im_files)
-        keep, labels, shapes, _, msgs = load_or_build_label_cache(
+        keep, labels, shapes, segments, msgs = load_or_build_label_cache(
             self.im_files, self.label_files)
         for m in msgs[:10]:
             print(m)
@@ -223,19 +243,25 @@ class YOLODataset:
         self.im_files = [self.im_files[i] for i in keep]
         self.label_files = [self.label_files[i] for i in keep]
         self.labels = labels
+        self.segments = segments
         if not self.im_files:
             raise FileNotFoundError(f"no usable images in {path}")
         if single_cls:
             for l in self.labels:
                 l[:, 0] = 0
         self.n = len(self.im_files)
+        self.indices = np.arange(self.n)
+        self.mosaic_border = (-img_size // 2, -img_size // 2)
         self.shapes = np.asarray(shapes, np.int32)  # (n, 2) original (h, w)
+        self.albumentations = Albumentations(img_size) if augment and not device_aug else None
 
     def __len__(self):
         return self.n
 
+    # -- image io ---------------------------------------------------------
     def load_image(self, i):
-        """Read + resize long side to img_size (reference dataloaders.py:768-788).
+        """Read + resize long side to img_size (reference dataloaders.py:768-788):
+        linear for a training set or to grow, area to shrink for validation.
         Returns (im, (h0, w0), (h, w))."""
         if self.cache == "ram" and i in self._ram:
             im, hw0, hw = self._ram[i]
@@ -259,34 +285,141 @@ class YOLODataset:
         h0, w0 = im.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:
-            import cv2
-
-            interp = cv2.INTER_LINEAR if (self.augment or r > 1) else cv2.INTER_AREA
-            im = cv2.resize(im, (math.ceil(w0 * r), math.ceil(h0 * r)), interpolation=interp)
+            interp = "linear" if (self.augment or r > 1) else "area"
+            im = resize(im, (math.ceil(w0 * r), math.ceil(h0 * r)), interp)
         if self.cache == "ram":
             self._ram[i] = (im.copy(), (h0, w0), im.shape[:2])
         return im, (h0, w0), im.shape[:2]
 
-    def get_item(self, index):
-        """One sample letterboxed to (s, s): (im uint8 BGR, labels (n, 5)
-        normalized xywh in the letterboxed frame)."""
+    # -- label geometry ---------------------------------------------------
+    @staticmethod
+    def _denorm(labels, w, h, padw=0, padh=0):
+        """normalized xywh -> pixel xyxy."""
+        out = labels.copy()
+        if len(out):
+            x, y, bw, bh = labels[:, 1], labels[:, 2], labels[:, 3], labels[:, 4]
+            out[:, 1] = w * (x - bw / 2) + padw
+            out[:, 2] = h * (y - bh / 2) + padh
+            out[:, 3] = w * (x + bw / 2) + padw
+            out[:, 4] = h * (y + bh / 2) + padh
+        return out
+
+    @staticmethod
+    def _norm(labels, w, h):
+        """pixel xyxy -> normalized xywh (clipped)."""
+        out = labels.copy()
+        if len(out):
+            x1 = labels[:, 1].clip(0, w)
+            y1 = labels[:, 2].clip(0, h)
+            x2 = labels[:, 3].clip(0, w)
+            y2 = labels[:, 4].clip(0, h)
+            out[:, 1] = (x1 + x2) / 2 / w
+            out[:, 2] = (y1 + y2) / 2 / h
+            out[:, 3] = (x2 - x1) / w
+            out[:, 4] = (y2 - y1) / h
+        return out
+
+    # -- samples ----------------------------------------------------------
+    def load_mosaic(self, index, rng):
+        """4-image mosaic on a 2s x 2s canvas, copy-paste on it, and
+        random_perspective's crop back to s x s (reference
+        dataloaders.py:798-855)."""
         s = self.img_size
-        im, _, (h, w) = self.load_image(index)
-        im, ratio, pad = letterbox(im, s, auto=False, scaleup=False)
-        labels = self.labels[index].copy()
-        if len(labels):  # normalized xywh -> letterbox px xyxy -> normalized xywh
-            x, y, bw, bh = (labels[:, j].copy() for j in range(1, 5))
-            sw, sh = ratio[0] * w, ratio[1] * h
-            x1 = (sw * (x - bw / 2) + pad[0]).clip(0, s)
-            y1 = (sh * (y - bh / 2) + pad[1]).clip(0, s)
-            x2 = (sw * (x + bw / 2) + pad[0]).clip(0, s)
-            y2 = (sh * (y + bh / 2) + pad[1]).clip(0, s)
-            labels[:, 1] = (x1 + x2) / 2 / s
-            labels[:, 2] = (y1 + y2) / 2 / s
-            labels[:, 3] = (x2 - x1) / s
-            labels[:, 4] = (y2 - y1) / s
-            labels = labels[(labels[:, 3] > 1e-4) & (labels[:, 4] > 1e-4)]
-        return np.ascontiguousarray(im), labels
+        yc = int(rng.uniform(-self.mosaic_border[0], 2 * s + self.mosaic_border[0]))
+        xc = int(rng.uniform(-self.mosaic_border[1], 2 * s + self.mosaic_border[1]))
+        idxs = [index] + list(rng.choice(self.indices, 3))
+        im4 = np.full((s * 2, s * 2, 3), 114, np.uint8)
+        labels4 = []
+        segments4 = []
+        for i, idx in enumerate(idxs):
+            im, _, (h, w) = self.load_image(idx)
+            if i == 0:  # top left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+            elif i == 1:  # top right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+            elif i == 2:  # bottom left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+            else:  # bottom right
+                x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+            im4[y1a:y2a, x1a:x2a] = im[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+            labels4.append(self._denorm(self.labels[idx], w, h, padw, padh))
+            for seg in self.segments[idx]:
+                seg = seg.copy()
+                seg[:, 0] = seg[:, 0] * w + padw
+                seg[:, 1] = seg[:, 1] * h + padh
+                segments4.append(seg)
+        labels4 = np.concatenate(labels4, 0)
+        labels4[:, 1:] = labels4[:, 1:].clip(0, 2 * s)
+        for seg in segments4:
+            np.clip(seg, 0, 2 * s, out=seg)
+
+        hyp = self.hyp
+        if hyp.get("copy_paste", 0) and segments4:
+            # paste flipped instances onto the canvas before the warp
+            # (reference dataloaders.py:836)
+            im4, labels4, segments4 = copy_paste(im4, labels4, segments4, p=hyp["copy_paste"],
+                                                 rng=rng)
+        geo = {k: hyp[k] for k in ("degrees", "translate", "scale", "shear", "perspective")}
+        if self.device_aug:  # the device warps; the host only crops
+            geo = dict.fromkeys(geo, 0.0)
+        return random_perspective(im4, labels4, segments4, border=self.mosaic_border, rng=rng,
+                                  **geo)
+
+    def get_item(self, index, rng=None):
+        """One sample: (im uint8 BGR (s, s, 3), labels (n, 5) normalized xywh,
+        segments in pixels). A training set draws the mosaic (and mixup) or
+        the letterbox with random_perspective, then albumentations, HSV and
+        flips, all from ``rng``; a validation set letterboxes."""
+        rng = rng or np.random.default_rng()
+        hyp = self.hyp
+        s = self.img_size
+        if self.augment and rng.random() < hyp["mosaic"]:
+            im, labels, segments = self.load_mosaic(index, rng)
+            if rng.random() < hyp["mixup"]:
+                im2, labels2, seg2 = self.load_mosaic(int(rng.choice(self.indices)), rng)
+                im, labels = mixup(im, labels, im2, labels2, rng=rng)
+                segments = segments + seg2
+        else:
+            im, _, (h, w) = self.load_image(index)
+            im, ratio, pad = letterbox(im, s, auto=False, scaleup=self.augment)
+            labels = self._denorm(self.labels[index], ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+            segments = []
+            for seg in self.segments[index]:
+                seg = seg.copy()
+                seg[:, 0] = seg[:, 0] * ratio[0] * w + pad[0]
+                seg[:, 1] = seg[:, 1] * ratio[1] * h + pad[1]
+                segments.append(seg)
+            if self.augment and not self.device_aug:
+                im, labels, segments = random_perspective(
+                    im, labels, segments, degrees=hyp["degrees"], translate=hyp["translate"],
+                    scale=hyp["scale"], shear=hyp["shear"], perspective=hyp["perspective"],
+                    rng=rng)
+
+        if self.augment and not self.device_aug:
+            if self.albumentations is not None and self.albumentations.transform:
+                # pixel-level extras before HSV and flips (reference
+                # dataloaders.py:692-696), on normalized xywh labels
+                h_im, w_im = im.shape[:2]
+                lab_n = self._norm(labels, w_im, h_im)
+                im, lab_n = self.albumentations(im, lab_n, rng=rng)
+                labels = self._denorm(lab_n, w_im, h_im)
+            augment_hsv(im, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng=rng)
+            if rng.random() < hyp["flipud"]:
+                im, labels = flip_ud(im, labels, segments)
+            if rng.random() < hyp["fliplr"]:
+                im, labels = flip_lr(im, labels, segments)
+
+        labels = self._norm(labels, im.shape[1], im.shape[0])
+        if len(labels):  # drop degenerate rows
+            keep = (labels[:, 3] > 1e-4) & (labels[:, 4] > 1e-4)
+            labels = labels[keep]
+            segments = [s_ for s_, k in zip(segments, keep) if k] if segments else []
+        return np.ascontiguousarray(im), labels, segments
 
 
 def rect_batch_shapes(shapes, batch_size, img_size, stride=32, pad=0.5,
@@ -345,16 +478,52 @@ def raw_batch(ds: YOLODataset, chunk, max_labels):
     return {"images": images, "hw": hw, "targets": targets, "valid": valid}
 
 
-class Loader:
-    """Fixed-shape batches over a ``YOLODataset``: rect (aspect-sorted,
-    per-batch shape) or square (img_size²) for validation, in index order,
-    the final partial batch padded with copies of its last image (``real``
-    counts the others); for a training set (``augment``), ``raw_batch``es
-    for the device mosaic in a permutation seeded by (seed + epoch), the JAX
-    package's order for the same seed, the final partial batch dropped."""
+# -- process-pool batch building ------------------------------------------
+# Augmented training (a mosaic: 4 decodes, a paste and a warp a sample) is
+# held by the GIL in threads; as the reference's DataLoader workers
+# (utils/dataloaders.py:148-163), a persistent spawn pool builds whole
+# collated batches (numpy in, numpy out: workers never touch torch). A batch
+# is a function of (seed, epoch, batch index), so the pool gives the batches
+# of the in-process path.
 
-    def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128,
-                 workers=8, rect=False, stride=32, pad=0.5, seed=0):
+_WORKER_LOADER = None
+
+
+def _mp_init(loader):
+    global _WORKER_LOADER
+    _WORKER_LOADER = loader
+
+
+def _mp_build(task):
+    return _WORKER_LOADER._build(*task)
+
+
+def _available_ram():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable"):
+                return int(line.split()[1]) * 1024
+    return 8 << 30
+
+
+class Loader:
+    """Fixed-shape batches over a ``YOLODataset``.
+
+    Validation (``augment`` False): rect (aspect-sorted, per-batch shape) or
+    square (img_size²) batches in index order, the final partial batch
+    padded with copies of its last image (``real`` counts the others).
+    Training: a permutation seeded by (seed + epoch), the JAX package's order
+    for the same seed (or ``set_image_weights``' draw), the final partial
+    batch dropped; host-augmented batches (``get_item``, or ``quad``
+    batches), or, with ``device_aug``, ``raw_batch``es for the device mosaic.
+    With ``workers`` > 1 a training loader builds its batches in a pool of
+    spawned processes, at most workers + 2 batches in flight; ``close()``
+    ends it. Sample i of an epoch draws from ``default_rng(seed * 100003 +
+    epoch * 1009 + i)``, a quad batch's layout from ``(seed * 100003 + epoch
+    * 1009 + bi * 7919) * 31 + 7``, wherever the batch is built."""
+
+    def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128, workers=8,
+                 rect=False, stride=32, pad=0.5, seed=0, shuffle=None, quad=False):
         self.ds = dataset
         self.bs = batch_size
         if max_labels in (None, "auto"):
@@ -363,22 +532,57 @@ class Loader:
             max_labels = max(8, int(math.ceil(most / 8) * 8))
         self.max_labels = max_labels
         self.workers = max(1, min(workers, os.cpu_count() or 1))
+        self.shuffle = dataset.augment if shuffle is None else shuffle
+        self.drop_last = dataset.augment
+        self.raw_images = dataset.augment and dataset.device_aug
+        # quad batches (reference collate_fn4): every 4 samples -> one 2s x 2s image
+        self.quad = bool(quad)
+        if self.quad:
+            if batch_size % 4:
+                raise ValueError("--quad needs batch_size divisible by 4")
+            if self.raw_images or rect:
+                raise ValueError("--quad is incompatible with the device mosaic and rect "
+                                 "batches")
+        # the JAX package's rule (dataset.py:603): a training set never gets
+        # rect batches
         self.rect = rect and not dataset.augment
         self.stride = stride
         self.pad = pad
         self.seed = seed
         self.epoch = 0
+        self.weighted_indices = None  # set per epoch by set_image_weights
         self._rect_plan = None
+        if self.rect:
+            self.shuffle = False
+            self.drop_last = False
+        self.use_processes = dataset.augment and self.workers > 1
+        self._mp_pool = None
+
+    def __getstate__(self):  # what the worker processes receive
+        return {k: v for k, v in self.__dict__.items() if k != "_mp_pool"}
 
     def __len__(self):
-        n = len(self.ds)
-        return n // self.bs if self.ds.augment else math.ceil(n / self.bs)
+        if self.rect:
+            return math.ceil(len(self.ds) / self.bs)
+        n = len(self.weighted_indices) if self.weighted_indices is not None else len(self.ds)
+        return n // self.bs if self.drop_last else math.ceil(n / self.bs)
 
     def _indices(self, epoch):
+        if self.weighted_indices is not None:
+            return np.asarray(self.weighted_indices)
         idx = np.arange(len(self.ds))
-        if self.ds.augment:
+        if self.shuffle:
             idx = np.random.default_rng(self.seed + epoch).permutation(idx)
         return idx
+
+    def set_image_weights(self, weights, epoch=0):
+        """Resample the epoch's indices by per-image weights (reference
+        image_weights resampling, train.py:359-362)."""
+        rng = np.random.default_rng(self.seed + epoch)
+        n = len(self.ds)
+        p = np.asarray(weights, np.float64)
+        p = p / p.sum() if p.sum() > 0 else None
+        self.weighted_indices = rng.choice(n, size=n, replace=True, p=p)
 
     def set_epoch(self, epoch):
         self.epoch = epoch
@@ -396,13 +600,97 @@ class Loader:
         images = np.zeros((bs, s, s, 3), np.uint8)
         targets = np.zeros((bs, self.max_labels, 5), np.float32)
         valid = np.zeros((bs, self.max_labels), bool)
-        for b, (im, labels) in enumerate(samples):
+        for b, (im, labels, _) in enumerate(samples):
             images[b] = im[..., ::-1]  # BGR -> RGB
             n = min(len(labels), self.max_labels)
             if n:
                 targets[b, :n] = labels[:n]
                 valid[b, :n] = True
         return {"images": images, "targets": targets, "valid": valid}
+
+    def _quad_collate(self, samples, rng):
+        """Quad batches (reference collate_fn4, utils/dataloaders.py:865-891):
+        each group of 4 samples becomes one 2s x 2s image, the first sample
+        upsampled 2x (half the time) or the four tiled 2x2. The label
+        capacity grows 4x so that a tiled group never truncates."""
+        s = self.ds.img_size
+        n_out = len(samples) // 4
+        cap = self.max_labels * 4
+        images = np.zeros((n_out, 2 * s, 2 * s, 3), np.uint8)
+        targets = np.zeros((n_out, cap, 5), np.float32)
+        valid = np.zeros((n_out, cap), bool)
+        for o in range(n_out):
+            group = samples[4 * o:4 * o + 4]
+            if rng.random() < 0.5:
+                im, lab, _ = group[0]
+                images[o] = resize(im, (2 * s, 2 * s), "linear")[..., ::-1]
+            else:
+                rows = []
+                for q, (im, labels, _) in enumerate(group):
+                    dy, dx = divmod(q, 2)
+                    images[o, dy * s:(dy + 1) * s, dx * s:(dx + 1) * s] = im[..., ::-1]
+                    if len(labels):
+                        lb = labels.copy()
+                        lb[:, 1] = (lb[:, 1] + dx) / 2
+                        lb[:, 2] = (lb[:, 2] + dy) / 2
+                        lb[:, 3:5] /= 2
+                        rows.append(lb)
+                lab = np.concatenate(rows) if rows else np.zeros((0, 5), np.float32)
+            n = min(len(lab), cap)
+            if n:
+                targets[o, :n] = lab[:n]
+                valid[o, :n] = True
+        return {"images": images, "targets": targets, "valid": valid}
+
+    def _build(self, chunk, real, base_seed, bi, map_fn=map):
+        """Batch ``bi`` of an epoch: indices ``chunk`` (``real`` of them not
+        padding), sample i drawing from ``default_rng(base_seed + i)``."""
+        if self.raw_images:
+            batch = raw_batch(self.ds, chunk, self.max_labels)
+        else:
+            fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
+            samples = list(map_fn(fetch, chunk[:real]))
+            samples += [samples[-1]] * (len(chunk) - real)
+            if self.quad:
+                batch = self._quad_collate(samples, np.random.default_rng(
+                    (base_seed + bi * 7919) * 31 + 7))
+            else:
+                batch = self._collate(samples)
+        batch["real"] = real
+        batch["indices"] = np.asarray(chunk, np.int64)
+        return batch
+
+    def _pool(self):
+        if self._mp_pool is None:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+
+            # spawn, not fork: the parent holds CUDA and torch's threads. A
+            # worker that dies breaks the pool, and the next batch raises
+            self._mp_pool = ProcessPoolExecutor(self.workers, mp.get_context("spawn"),
+                                                initializer=_mp_init, initargs=(self,))
+        return self._mp_pool
+
+    def close(self):
+        """End the worker processes, if any were started: batches not begun
+        are cancelled, those being built are finished."""
+        if self._mp_pool is not None:
+            self._mp_pool.shutdown(wait=True, cancel_futures=True)
+            self._mp_pool = None
+
+    def _mp_iter(self, tasks):
+        """The pool's batches in order, at most workers + 2 in flight (a fast
+        pool must not pile up batches in its result queue)."""
+        pool = self._pool()
+        tasks = iter(tasks)
+        pending = deque(pool.submit(_mp_build, t)
+                        for t in itertools.islice(tasks, self.workers + 2))
+        while pending:
+            batch = pending.popleft().result()
+            nxt = next(tasks, None)
+            if nxt is not None:
+                pending.append(pool.submit(_mp_build, nxt))
+            yield batch
 
     def _rect_batch(self, chunk, hw):
         """Load + letterbox a batch to the rect shape (h, w); labels
@@ -453,30 +741,34 @@ class Loader:
             yield from self._rect_iter()
             return
         idx = self._indices(self.epoch)
-        with ThreadPoolExecutor(self.workers) as pool:
-            for bi in range(len(self)):
-                chunk, real = self._pad_chunk(idx[bi * self.bs:(bi + 1) * self.bs])
-                if self.ds.augment:
-                    batch = raw_batch(self.ds, chunk, self.max_labels)
-                else:
-                    samples = list(pool.map(self.ds.get_item, chunk[:real]))
-                    samples += [samples[-1]] * (self.bs - real)
-                    batch = self._collate(samples)
-                batch["real"] = real
-                batch["paths"] = [self.ds.im_files[i] for i in chunk]
-                batch["indices"] = np.asarray(chunk, np.int64)
+        base_seed = self.seed * 100003 + self.epoch * 1009
+        tasks = (self._pad_chunk(idx[bi * self.bs:(bi + 1) * self.bs]) + (base_seed, bi)
+                 for bi in range(len(self)))
+        with ThreadPoolExecutor(self.workers) as threads:
+            batches = (self._mp_iter(tasks) if self.use_processes
+                       else (self._build(*t, map_fn=threads.map) for t in tasks))
+            for batch in batches:
+                batch["paths"] = [self.ds.im_files[i] for i in batch["indices"]]
                 yield batch
 
 
 def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=128,
                   workers=8, seed=0, single_cls=False, cache=None, device_aug=False,
-                  rect=False, stride=32, pad=0.5):
+                  rect=False, stride=32, pad=0.5, hyp=None, shuffle=None, quad=False):
     """Dataset + loader in one call (reference create_dataloader,
     utils/dataloaders.py:106-164). Validation (augment False) sees every
-    image once and pads the final batch; training (augment True, which
-    needs device_aug) shuffles raw batches and drops the final partial
-    batch."""
+    image once and pads the final batch; training (augment True) shuffles
+    (unless ``shuffle`` is False) and drops the final partial batch. cache:
+    None = for a training set, the RAM cache when the decoded images fit in
+    0.4 of the available memory (once per worker process), False = off,
+    "ram" or "disk"."""
     ds = YOLODataset(path, img_size=img_size, single_cls=single_cls, cache=cache or None,
-                     augment=augment, device_aug=device_aug)
-    return ds, Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
-                      rect=rect, stride=stride, pad=pad, seed=seed)
+                     augment=augment, device_aug=device_aug, hyp=hyp)
+    loader = Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
+                    rect=rect, stride=stride, pad=pad, seed=seed, shuffle=shuffle, quad=quad)
+    if cache is None and augment:
+        # the reference's check_cache_ram (dataloaders.py:614-631)
+        copies = loader.workers if loader.use_processes else 1
+        if len(ds) * img_size * img_size * 3 * 1.1 * copies < 0.4 * _available_ram():
+            ds.cache = "ram"
+    return ds, loader

@@ -280,17 +280,22 @@ def _tile_origins(k, xc, yc, h, w):
     return (xc - w if k in (0, 2) else xc), (yc - h if k in (0, 1) else yc)
 
 
-def mosaic_warp(pool, targets4, valid4, idx, hw4, xc, yc, M, scale):
+def mosaic_warp(pool, targets4, valid4, idx, hw4, xc, yc, M, scale, out_size=None):
     """The deterministic mosaic core: the 2s canvas of tiles pool[idx[:, k]]
     (content hw4[:, k] in the top-left of each s x s buffer, bottom-right
     corner of the top-left tile at (xc, yc), integer px), warped to s x s
     by M (bs, 3, 3), then labels: tile -> canvas px, clipped to the canvas,
     through M, clipped to the output, filtered by ``box_candidates``.
+    ``out_size``: the image comes out at out_size x out_size instead (the
+    per-batch multi-scale resize folded into the warp, the JAX package's
+    ``mosaic_fused(out_size=...)``); labels are normalized, so they are
+    computed at s, ``box_candidates`` included.
 
     pool (N, s, s, 3) uint8; hw4 (bs, 4, 2) float content sizes (0 for a
     tile left out); targets4 (bs, 4, M, 5), valid4 (bs, 4, M). Returns
-    (images (bs, s, s, 3) uint8, targets (bs, 4M, 5), valid (bs, 4M))."""
+    (images (bs, out, out, 3) uint8, targets (bs, 4M, 5), valid (bs, 4M))."""
     bs, s = idx.shape[0], pool.shape[1]
+    out_s = int(out_size) if out_size else s
     xc, yc = xc.long(), yc.long()
     hw4i = hw4.long()
 
@@ -307,7 +312,8 @@ def mosaic_warp(pool, targets4, valid4, idx, hw4, xc, yc, M, scale):
         tile = idx.gather(1, k)
         return pool[tile, ly.clamp(0, s - 1), lx.clamp(0, s - 1)].float(), inside
 
-    out = _to_u8(_bilinear(read, torch.linalg.inv(M), s, s))
+    q = torch.diag(torch.tensor([out_s / s, out_s / s, 1.0], device=M.device))
+    out = _to_u8(_bilinear(read, torch.linalg.inv(q @ M), out_s, out_s))
 
     labels, valids = [], []
     xcf, ycf = xc.float()[:, None], yc.float()[:, None]
@@ -339,7 +345,8 @@ def _apply_mosaic_prob(do, hw4, valid4, xc, yc, s):
     return hw4, valid4, xc, yc
 
 
-def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=None):
+def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=None,
+                    out_size=None):
     """On-device 4-tile mosaic of raw batches (the JAX package's
     ``mosaic_in_batch``; reference dataloaders.py:798-855).
 
@@ -349,7 +356,8 @@ def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=No
     valid) and ``self_idx`` (this batch's indices into it), the three
     partners are drawn from the whole dataset; without, from the batch.
     Each image is a mosaic with probability hyp['mosaic']. The geometry
-    (degrees, translate, scale, shear, perspective) warps the 2s canvas to s."""
+    (degrees, translate, scale, shear, perspective) warps the 2s canvas to s,
+    or to ``out_size`` (``mosaic_warp``)."""
     bs, s = images.shape[0], images.shape[1]
     dev = images.device
     if pool is not None:
@@ -371,10 +379,10 @@ def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=No
                         hyp.get("scale", 0.5), hyp.get("shear", 0.0),
                         hyp.get("perspective", 0.0), dev)
     M, scale = affine_from_draws(draws, 2 * s, 2 * s, s, s)
-    return mosaic_warp(images, targets4, valid4, idx, hw4, xc, yc, M, scale)
+    return mosaic_warp(images, targets4, valid4, idx, hw4, xc, yc, M, scale, out_size)
 
 
-def mosaic_device(tiles, tile_hw, targets4, valid4, gen, hyp):
+def mosaic_device(tiles, tile_hw, targets4, valid4, gen, hyp, out_size=None):
     """The mosaic of explicit 4-tile batches (the JAX package's
     ``mosaic_device``): tiles (bs, 4, s, s, 3) uint8, each content in the
     top-left of its buffer; tile_hw (bs, 4, 2); targets4 (bs, 4, M, 5),
@@ -389,7 +397,7 @@ def mosaic_device(tiles, tile_hw, targets4, valid4, gen, hyp):
                         hyp.get("perspective", 0.0), dev)
     M, scale = affine_from_draws(draws, 2 * s, 2 * s, s, s)
     return mosaic_warp(tiles.reshape(bs * 4, s, s, 3), targets4, valid4, idx,
-                       tile_hw.float(), c[:, 0], c[:, 1], M, scale)
+                       tile_hw.float(), c[:, 0], c[:, 1], M, scale, out_size)
 
 
 def device_augment(batch, gen, hyp):

@@ -1,15 +1,16 @@
 """Aspect-preserving resize + pad, and its inverse for boxes (host side).
 
 A copy of ``yolov5_tpu/data/letterbox.py`` and ``yolov5_tpu.infer.scale_boxes_np``
-with one change: the constant border is written with numpy instead of
-``cv2.copyMakeBorder`` (same result), and OpenCV is imported only when a
-resize is actually needed, so images that need padding only go through a
-machine without OpenCV.
+without OpenCV: the resize is ``data.cv.resize`` (bit-exact with
+``cv2.resize(..., INTER_LINEAR)``) and the constant border is written with
+numpy instead of ``cv2.copyMakeBorder`` (same result).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from yolov5_tpu_torch.data.cv import resize
 
 
 def letterbox(im, new_shape=(640, 640), color=(114, 114, 114), auto=False,
@@ -35,9 +36,7 @@ def letterbox(im, new_shape=(640, 640), color=(114, 114, 114), auto=False,
     dw /= 2
     dh /= 2
     if shape[::-1] != new_unpad:
-        import cv2
-
-        im = cv2.resize(im, new_unpad, interpolation=cv2.INTER_LINEAR)
+        im = resize(im, new_unpad, "linear")
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     h, w = im.shape[:2]

@@ -2,17 +2,20 @@
 the ``__main__`` of the ``train`` package.
 
     python -m yolov5_tpu_torch.train --data shapes.yaml --cfg yolov5s --imgsz 640 \\
-        --batch-size 32 --device-aug
+        --batch-size 32
     python -m yolov5_tpu_torch.train --device cpu --data shapes.yaml --cfg yolov5n \\
-        --imgsz 128 --batch-size 4 --epochs 2 --device-aug --dtype float32
+        --imgsz 128 --batch-size 4 --epochs 2 --dtype float32
 
+By default the host augments (mosaic, copy-paste, mixup, geometry, HSV and
+flips in worker processes); ``--device-aug`` moves it to the device.
 Writes ``results.csv``, ``last.ckpt`` and ``best.ckpt`` (the JAX package's
 checkpoint format) under ``<project>/<name>``, and prints, last, one JSON
 line: best fitness, the last validation's metrics and the run directory.
-``--device`` defaults to ``cuda`` and raises when no CUDA device is there.
-Options the port does not have yet (``--rect``, ``--quad``,
-``--multi-scale``, ``--image-weights``, ``--upload-dataset``, ``--evolve``,
-training without ``--device-aug``) raise ``NotImplementedError``.
+``--evolve N`` instead runs N generations of hyperparameter evolution under
+``runs/evolve/<name>`` (``evolve.csv``, ``hyp_evolve.yaml``) and prints the
+best hyps and fitness. ``--device`` defaults to ``cuda`` and raises when no
+CUDA device is there. ``--upload-dataset`` (cloud loggers) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def parse_opt(argv=None):
     p.add_argument("--hyp", default=None, help="hyp preset name or yaml")
     p.add_argument("--label-smoothing", type=float, default=0.0, help="cls BCE eps")
     p.add_argument("--noplots", action="store_true", help="no plots (none are written yet)")
-    p.add_argument("--rect", action="store_true", help="rectangular training (not ported)")
+    p.add_argument("--rect", action="store_true",
+                   help="rectangular training (no mosaic, no shuffle)")
     p.add_argument("--sync-bn", action="store_true", help="no-op on one device")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=16)
@@ -56,17 +60,20 @@ def parse_opt(argv=None):
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
                    help="bfloat16: autocast with float32 master weights")
     p.add_argument("--evolve", type=int, nargs="?", const=30, default=0,
-                   help="hyperparameter evolution (not ported)")
+                   help="evolve hyperparameters for N generations")
     p.add_argument("--freeze", type=int, default=0, help="freeze first N layers")
-    p.add_argument("--multi-scale", action="store_true", help="not ported")
-    p.add_argument("--image-weights", action="store_true", help="not ported")
+    p.add_argument("--multi-scale", action="store_true",
+                   help="a stride-aligned size in 0.5-1.5x imgsz per batch")
+    p.add_argument("--image-weights", action="store_true",
+                   help="draw images by the AP of their classes, from the second epoch")
     p.add_argument("--cache", default=None, choices=[None, "ram", "disk", "device", "none"],
                    help="image cache: auto (default: on the device when it fits), ram, disk, "
                         "device, or none")
     p.add_argument("--noautoanchor", action="store_true")
-    p.add_argument("--quad", action="store_true", help="quad batches (not ported)")
+    p.add_argument("--quad", action="store_true",
+                   help="quad batches: every 4 samples -> one 2x-size image")
     p.add_argument("--device-aug", action="store_true",
-                   help="mosaic, geometry, HSV and flips on the device (required)")
+                   help="mosaic, geometry, HSV and flips on the device")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     return p.parse_args(argv)
 
@@ -76,7 +83,16 @@ def main(argv=None):
     if not opt.data and not opt.resume:
         raise SystemExit("error: --data is required unless --resume is given")
     if opt.evolve:
-        raise NotImplementedError("--evolve (hyperparameter evolution) is not ported")
+        from yolov5_tpu_torch.train.evolve import run_evolve
+
+        best_hyp, best_fitness = run_evolve(
+            data=opt.data, cfg=opt.cfg, hyp=opt.hyp, generations=opt.evolve,
+            epochs=opt.epochs, batch_size=opt.batch_size, imgsz=opt.imgsz,
+            save_dir=f"{opt.project.replace('train', 'evolve')}/{opt.name}", seed=opt.seed,
+            train_kwargs=dict(device=opt.device, dtype=opt.dtype, workers=opt.workers,
+                              device_aug=opt.device_aug))
+        print(json.dumps({"best_fitness": best_fitness, "hyp": best_hyp}))
+        return
     from yolov5_tpu_torch.train.run import run
 
     best_fitness, results, save_dir = run(

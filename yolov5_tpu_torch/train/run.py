@@ -2,23 +2,30 @@
 ``yolov5_tpu/train/run.py`` (the reference's train.py:105-528) on one
 explicit device.
 
-The training set is decoded once and kept in device memory when it fits
-(``data.device_cache``), else streamed as raw batches; mosaic, geometry,
-HSV and flips run on the device (``device_aug``). The model trains in bf16
-autocast with float32 master weights. After each epoch the EMA weights,
-with BN folded, are validated through ``eval.evaluator.evaluate`` (the stem
-kernel K2 and the suppression kernel K1 on CUDA). ``last.ckpt`` keeps the
-optimizer state for ``--resume``; ``best.ckpt`` does not. Both are in the
-JAX package's format.
+Two ways to augment. By default, as in the JAX package, the host augments:
+``data.dataset`` builds mosaic (copy-paste, mixup), random_perspective, HSV
+and flips with numpy in a pool of worker processes, and ``train.prefetch``
+copies the batches to the device two ahead of the step. With
+``device_aug`` the training set is decoded once and kept in device memory
+when it fits (``data.device_cache``), else streamed as raw batches; mosaic,
+geometry, HSV and flips then run on the device (``data.device_aug``).
+``rect`` (no mosaic, no shuffle), ``quad`` (2s batches, loss gain 4),
+``multi_scale`` (a stride-aligned size per batch: resized on the host, or
+folded into the device mosaic's warp) and ``image_weights`` (indices drawn
+by per-image weights from the second epoch) are the JAX package's. The
+model trains in bf16 autocast with float32 master weights. After each
+epoch the EMA weights, with BN folded, are validated through
+``eval.evaluator.evaluate`` (the stem kernel K2 and the suppression kernel
+K1 on CUDA). ``last.ckpt`` keeps the optimizer state for ``--resume``;
+``best.ckpt`` does not. Both are in the JAX package's format.
 
-Not ported, and raising ``NotImplementedError``: host augmentation (the run
-needs ``device_aug``), ``rect``, ``quad``, ``multi_scale``,
-``image_weights``, the cloud loggers (``upload_dataset``) and cloud
-resumes. Plots are not written.
+Not ported, and raising ``NotImplementedError``: the cloud loggers
+(``upload_dataset``) and cloud resumes. Plots are not written.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
 
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 import yaml
 
+from yolov5_tpu_torch.data.cv import resize
 from yolov5_tpu_torch.data.dataset import create_loader
 from yolov5_tpu_torch.data.device_cache import (build_cache_arrays, cache_nbytes,
                                                 device_memory_budget, index_batches, to_device)
@@ -35,15 +43,45 @@ from yolov5_tpu_torch.models.weights import from_jax_variables, load_torch_state
 from yolov5_tpu_torch.models.yolo import DetectionModel
 from yolov5_tpu_torch.train.loss import ComputeLoss
 from yolov5_tpu_torch.train.optim import Optimizer
+from yolov5_tpu_torch.train.prefetch import prefetch
 from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
 from yolov5_tpu_torch.utils.callbacks import Callbacks
 from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
                                                restore_train_state, save_checkpoint,
                                                variables_from_checkpoint)
 from yolov5_tpu_torch.utils.general import (check_dataset, check_img_size, increment_path,
-                                            init_seeds)
+                                            init_seeds, labels_to_class_weights)
 from yolov5_tpu_torch.utils.hyp import load_hyp
 from yolov5_tpu_torch.utils.loggers import Loggers
+
+
+def multiscale_sizes(imgsz, gs, n=None):
+    """The stride-aligned sizes of multi-scale training: ``n`` (default 5, or
+    ``YOLOV5_TPU_MS_BUCKETS``) evenly spaced multiples of ``gs`` over the
+    reference's 0.5-1.5x range (train.py:393-398), as the JAX package bins
+    it (run.py:42-57)."""
+    if n is None:
+        n = int(os.environ.get("YOLOV5_TPU_MS_BUCKETS", 5))
+    lo = max(1, int(round(imgsz * 0.5 / gs)))
+    hi = int(round(imgsz * 1.5 / gs))
+    ks = np.unique(np.linspace(lo, hi, min(n, hi - lo + 1)).round().astype(int))
+    return [int(k * gs) for k in ks]
+
+
+def multiscale_epoch_plan(idx_epoch, sizes, rng):
+    """The device-cached epoch's batches by size (the JAX package's
+    run.py:60-80): each size gets a fixed share of the epoch's batches (the
+    remainder to the first sizes), and which batches reshuffles each epoch.
+    Yields (size, index rows)."""
+    nb = len(idx_epoch)
+    k = len(sizes)
+    order = rng.permutation(nb)
+    start = 0
+    for i, sz in enumerate(sizes):
+        n = nb // k + (1 if i < nb % k else 0)
+        if n:
+            yield int(sz), idx_epoch[order[start:start + n]]
+        start += n
 
 
 def find_resume_ckpt(resume, project="runs/train"):
@@ -120,14 +158,8 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
                        callbacks=callbacks, device=device)
         _resume_ckpt = str(ckpt_path)
         save_dir = save_dir or str(run_dir)
-    for opt_name, on in dict(rect=rect, quad=quad, multi_scale=multi_scale,
-                             image_weights=image_weights, upload_dataset=upload_dataset).items():
-        if on:
-            raise NotImplementedError(f"train.run: --{opt_name.replace('_', '-')} is not ported")
-    if not device_aug:
-        raise NotImplementedError(
-            "train.run: host-side augmentation (yolov5_tpu/data/augment.py, load_mosaic, "
-            "the worker pool) is not ported; train with device_aug=True (--device-aug)")
+    if upload_dataset:
+        raise NotImplementedError("train.run: --upload-dataset (cloud loggers) is not ported")
     if sync_bn:
         print("--sync-bn: one device, nothing to synchronise")
     init_seeds(seed)
@@ -138,8 +170,9 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
         imgsz=imgsz, optimizer=optimizer, cos_lr=cos_lr, seed=seed, workers=workers,
         max_labels=max_labels, single_cls=single_cls, patience=patience, project=project,
         name=name, nosave=nosave, noval=noval, save_period=save_period, dtype=dtype,
-        val_batch_size=val_batch_size, freeze=freeze, cache=cache,
-        noautoanchor=noautoanchor, device_aug=device_aug, label_smoothing=label_smoothing,
+        val_batch_size=val_batch_size, freeze=freeze, multi_scale=multi_scale,
+        image_weights=image_weights, cache=cache, noautoanchor=noautoanchor,
+        device_aug=device_aug, quad=quad, rect=rect, label_smoothing=label_smoothing,
     ).items()}
     hyp = load_hyp(hyp)
     if label_smoothing:
@@ -182,11 +215,20 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
             print(f"weight import: {len(missed)} unmatched entries")
     imgsz = check_img_size(imgsz, s=max(model.stride))
 
-    # data: raw batches for the device mosaic, partners from the whole set
+    # data: host-augmented batches, or raw batches for the device mosaic
+    if rect and (device_aug or image_weights):
+        raise ValueError("--rect training needs the host loader without shuffle (reference "
+                         "dataloaders.py:148); drop --device-aug/--image-weights or --rect")
+    if quad and device_aug:
+        raise ValueError("--quad composes batches on the host; it is redundant with the "
+                         "--device-aug mosaic: drop one flag")
+    if rect:
+        hyp = dict(hyp, mosaic=0.0)  # reference: rect turns the mosaic off
     train_ds, train_loader = create_loader(
-        data_dict["train"], img_size=imgsz, batch_size=batch_size, augment=True,
+        data_dict["train"], img_size=imgsz, batch_size=batch_size, augment=True, hyp=hyp,
         workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
-        cache=cache if cache in ("ram", "disk") else None, device_aug=True)
+        cache=cache if cache in (None, False, "ram", "disk") else False,
+        device_aug=device_aug, quad=quad, rect=rect, shuffle=not rect)
     max_labels = train_loader.max_labels
     if not noautoanchor and not _resume_ckpt and not weights:
         from yolov5_tpu_torch.utils.autoanchor import check_anchors
@@ -206,8 +248,14 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
         raise ValueError(f"train loader is empty for {data_dict.get('train')}")
 
     model = model.to(device).to(memory_format=torch.channels_last)
+    ms_sizes, ms_rng = [], None
+    if multi_scale:
+        ms_sizes = multiscale_sizes(imgsz, max(model.stride))
+        ms_rng = np.random.default_rng(seed + 0x5CA1E)
+        print(f"multi-scale: per-batch sizes {ms_sizes}")
+    ms_device = multi_scale and device_aug  # the mosaic warps to the drawn size
     hyp_scaled = scale_hyp(hyp, nl=len(model.stride), nc=nc, imgsz=imgsz)
-    loss_fn = ComputeLoss(model.anchors_per_stride, nc, hyp_scaled)
+    loss_fn = ComputeLoss(model.anchors_per_stride, nc, hyp_scaled, gain=4.0 if quad else 1.0)
     opt = Optimizer(dict(model.named_parameters()), hyp_scaled, epochs=epochs,
                     steps_per_epoch=nb, batch_size=batch_size, name=optimizer, cos_lr=cos_lr,
                     freeze=freeze)
@@ -219,12 +267,32 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
         resume_payload = None
 
     cache_dev = None
-    if cache in (None, "device"):
+    if device_aug and cache in (None, "device"):
         need = cache_nbytes(train_ds, max_labels)
         if cache == "device" or need <= device_memory_budget(device):
+            train_ds.cache = None  # no host RAM copy beside the device's
             cache_dev = to_device(build_cache_arrays(train_ds, max_labels), device)
             print(f"device cache: {len(train_ds)} images ({need / 1e6:.0f} MB) on {device}")
-    step_fn = make_train_step(loss_fn, device_aug_hyp=hyp, dtype=amp, seed=seed)
+    aug_hyp = hyp if device_aug else None
+    step_fns = {sz: make_train_step(loss_fn, device_aug_hyp=aug_hyp, dtype=amp, seed=seed,
+                                    ms_size=sz) for sz in (ms_sizes if ms_device else [None])}
+    batch_keys = ("images", "hw", "targets", "valid") if device_aug else ("images", "targets",
+                                                                          "valid")
+
+    def host_prep(batch):
+        """The batch's arrays for the step; a host multi-scale size drawn per
+        batch resizes its images (quad batches are 2s)."""
+        batch = {k: batch[k] for k in batch_keys}
+        s_b = int(ms_rng.choice(ms_sizes)) if multi_scale and not ms_device else imgsz
+        if s_b != imgsz:
+            t = s_b * (2 if quad else 1)
+            batch["images"] = np.stack([resize(im, (t, t), "linear")
+                                        for im in batch["images"]])
+        return batch
+
+    def step_size():  # the device mosaic's size for the next batch
+        return int(ms_rng.choice(ms_sizes)) if ms_device else None
+
     stopper = EarlyStopper(patience)
     callbacks.run("on_train_start")
     print(f"training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} steps/epoch, "
@@ -233,53 +301,70 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
     results = {}
     t_start = time.time()
     epoch = start_epoch
-    for epoch in range(start_epoch, epochs):
-        callbacks.run("on_train_epoch_start")
-        train_loader.set_epoch(epoch)
-        t0 = time.time()
-        agg = None
-        if cache_dev is not None:
-            # one upload of the epoch's index batches; each step slices its row
-            idx_epoch = torch.from_numpy(np.stack([b["idx"] for b in index_batches(train_loader)]))
-            idx_epoch = idx_epoch.to(device)
-            batches = ({"idx": idx} for idx in idx_epoch)
-        else:
-            batches = ({k: torch.from_numpy(b[k]).to(device)
-                        for k in ("images", "hw", "targets", "valid")} for b in train_loader)
-        for batch in batches:
-            state, metrics = step_fn(state, batch, cache_dev)
-            agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
-            callbacks.run("on_train_batch_end")
-        agg = {k: v.item() for k, v in agg.items()}  # the epoch's one wait for the device
-        dt = time.time() - t0
-        row = {f"train/{k}": agg[k] / nb for k in ("box", "obj", "cls", "total")}
-        row["train/imgs_per_sec"] = nb * batch_size / dt
-        callbacks.run("on_train_epoch_end", epoch=epoch)
+    try:
+        for epoch in range(start_epoch, epochs):
+            callbacks.run("on_train_epoch_start")
+            train_loader.set_epoch(epoch)
+            if image_weights and results.get("per_class") is not None:
+                # resample images toward the classes with the worst AP (reference
+                # train.py:359-362 + labels_to_image_weights)
+                cw = labels_to_class_weights(train_ds.labels, nc)
+                ap_per = results.get("per_class", {})
+                err = np.array([cw[c] * (1.0 - ap_per.get(c, (0.0, 0.0))[1])
+                                for c in range(nc)])
+                iw = np.array([(err[lb[:, 0].astype(int)].sum() if len(lb) else 0.0)
+                               for lb in train_ds.labels]) + 1e-6
+                train_loader.set_image_weights(iw, epoch)
+            t0 = time.time()
+            if cache_dev is not None:
+                # one upload of the epoch's index batches; each step slices its row
+                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader)])
+                plan = (multiscale_epoch_plan(idx_epoch, ms_sizes, ms_rng) if ms_device
+                        else [(None, idx_epoch)])  # with ms_device, a share per size
+                feed = (({"idx": idx}, size) for size, rows in plan
+                        for idx in torch.from_numpy(rows).to(device))
+            else:  # host batches, prepared and copied two steps ahead
+                feed = ((batch, step_size()) for batch in
+                        prefetch(iter(train_loader), device, depth=2, transform=host_prep))
+            agg = None
+            for batch, size in feed:
+                _, metrics = step_fns[size](state, batch, cache_dev)
+                agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
+                callbacks.run("on_train_batch_end")
+            agg = {k: v.item() for k, v in agg.items()}  # the epoch's one wait for the device
+            dt = time.time() - t0
+            row = {f"train/{k}": agg[k] / nb for k in ("box", "obj", "cls", "total")}
+            row["train/imgs_per_sec"] = nb * batch_size / dt
+            callbacks.run("on_train_epoch_end", epoch=epoch)
 
-        # validate the EMA weights (the reference validates ema, train.py:446)
-        fi = 0.0
-        if val_loader is not None:
-            det = ema_detector(state, imgsz, amp == torch.bfloat16, device)
-            results = evaluate(det.forward, val_loader, device)
-            row.update({f"val/{k}": results[k] for k in ("mp", "mr", "map50", "map")})
-            fi = results["fitness"]
-        row["fitness"] = fi
-        loggers.log_metrics(row, epoch)
-        print(f"epoch {epoch + 1}/{epochs}  "
-              + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+            # validate the EMA weights (the reference validates ema, train.py:446)
+            fi = 0.0
+            if val_loader is not None:
+                det = ema_detector(state, imgsz, amp == torch.bfloat16, device)
+                results = evaluate(det.forward, val_loader, device)
+                row.update({f"val/{k}": results[k] for k in ("mp", "mr", "map50", "map")})
+                fi = results["fitness"]
+            row["fitness"] = fi
+            loggers.log_metrics(row, epoch)
+            print(f"epoch {epoch + 1}/{epochs}  "
+                  + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
 
-        best_fitness = max(best_fitness, fi)
-        if not nosave:
-            save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
-            if val_loader is not None and best_fitness == fi:
-                save_checkpoint(best, state, epoch, best_fitness)
-            if save_period > 0 and epoch % save_period == 0:
-                save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch, best_fitness)
-            callbacks.run("on_model_save", epoch=epoch)
-        callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fi)
-        if stopper(epoch, fi):
-            print(f"early stopping at epoch {epoch + 1} (no fitness gain in {patience} epochs)")
-            break
+            best_fitness = max(best_fitness, fi)
+            if not nosave:
+                save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
+                if val_loader is not None and best_fitness == fi:
+                    save_checkpoint(best, state, epoch, best_fitness)
+                if save_period > 0 and epoch % save_period == 0:
+                    save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
+                                    best_fitness)
+                callbacks.run("on_model_save", epoch=epoch)
+            callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fi)
+            if stopper(epoch, fi):
+                print(f"early stopping at epoch {epoch + 1} "
+                      f"(no fitness gain in {patience} epochs)")
+                break
+    finally:
+        train_loader.close()
 
     print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
     callbacks.run("on_train_end")

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from yolov5_tpu_torch.data.device_aug import aug_generator, device_augment, mosaic_in_batch
 from yolov5_tpu_torch.train.optim import EMAState, Optimizer, ema_init, ema_update
@@ -54,7 +55,18 @@ def init_train_state(model, opt: Optimizer) -> TrainState:
     return TrainState(0, model, opt, ema_init(dict(model.named_parameters()), batch_stats(model)))
 
 
-def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0):
+def resize_batch(images, size):
+    """(B, H, W, C) images resized to (B, size, size, C) bilinearly, as
+    ``jax.image.resize(..., "linear")`` does (antialiased when it shrinks);
+    uint8 rounds half up."""
+    x = F.interpolate(images.permute(0, 3, 1, 2).float(), size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    if images.dtype == torch.uint8:
+        return (x + 0.5).clamp(0, 255).to(torch.uint8)
+    return x.to(images.dtype)
+
+
+def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, ms_size=None):
     """The train step: ``step(state, batch, cache=None) -> (state, metrics)``.
 
     batch: {"images": (B, H, W, 3) uint8 or float in [0, 1], "targets"
@@ -64,8 +76,11 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0):
     labels are gathered from it. ``device_aug_hyp``: when set, mosaic (raw
     batches), geometry, HSV and flips run on the device, drawn from
     ``aug_generator(seed, state.step)``. ``dtype`` bfloat16 runs the forward
-    under autocast; float32 runs it in float32. The state is updated in
-    place and returned."""
+    under autocast; float32 runs it in float32. ``ms_size``: the per-batch
+    multi-scale size of device augmentation; the mosaic warps its canvas
+    straight to it, and a batch without one (none is raw) is resized after
+    augmentation as ``jax.image.resize(..., "linear")`` does (antialiased
+    when it shrinks). The state is updated in place and returned."""
     amp = dtype == torch.bfloat16
 
     def step(state: TrainState, batch, cache=None):
@@ -80,10 +95,12 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0):
             if "hw" in batch:  # raw batches: the mosaic composes and warps
                 images, targets, valid = mosaic_in_batch(
                     batch["images"], batch["hw"], batch["targets"], batch["valid"], gen, hyp,
-                    pool=cache, self_idx=self_idx)
+                    pool=cache, self_idx=self_idx, out_size=ms_size)
                 batch = {"images": images, "targets": targets, "valid": valid}
                 hyp.update({k: 0.0 for k in GEOMETRY_KEYS})  # warped once, not twice
             batch = device_augment(batch, gen, hyp)
+            if ms_size is not None and batch["images"].shape[1] != ms_size:
+                batch = dict(batch, images=resize_batch(batch["images"], ms_size))
         images = batch["images"].permute(0, 3, 1, 2)  # NHWC storage = channels_last
         if images.dtype == torch.uint8:
             images = images.to(dtype) / 255.0

@@ -1,7 +1,8 @@
 """Run directories, image-size rounding, dataset configs and seeding.
 
-Copies of ``increment_path``, ``check_img_size``, ``check_dataset`` and
-``init_seeds`` from ``yolov5_tpu/utils/general.py``, tested equal to them. Dataset presets are
+Copies of ``increment_path``, ``check_img_size``, ``check_dataset``,
+``init_seeds`` and ``labels_to_class_weights`` from
+``yolov5_tpu/utils/general.py``, tested equal to them. Dataset presets are
 read by path from ``yolov5_tpu/data/configs``.
 """
 
@@ -96,3 +97,15 @@ def check_dataset(data):
                 resolved.append(str(p))
             d[split] = resolved if len(resolved) > 1 else resolved[0]
     return d
+
+
+def labels_to_class_weights(labels_list, nc):
+    """Inverse-frequency class weights, summing to 1 (reference
+    general.py:530-541): a class no label has weighs 0."""
+    counts = np.zeros(nc)
+    for lb in labels_list:
+        if len(lb):
+            counts += np.bincount(lb[:, 0].astype(int), minlength=nc)
+    weights = 1.0 / np.maximum(counts, 1)
+    weights[counts == 0] = 0
+    return weights / max(weights.sum(), 1e-9)
