@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
-training, the detect CLI's run, the HTTP service and segmentation predict.
+training, the detect CLI's run, the HTTP service, segmentation predict, and
+segmentation training and validation.
 
     python3 chip_smoke.py
 
@@ -91,7 +92,23 @@ Phases, one line each:
      numpy border follower): both launch counters rise; against the run
      through both plain versions the counts are equal and matched
      detections' binary masks have IoU >= 0.99; ms/img, and K1 at 1 x 25 200
-     candidates beside its bound and its plain version.
+     candidates beside its bound and its plain version;
+ 17. segment train and val (run last): 64 train and 32 val BMPs of the val
+     shapes, every label a polygon (triangles and 12-vertex ellipses);
+     ``segment train`` (``yolov5_tpu_torch.segment.main`` in this process)
+     for yolov5s-seg at 640 px, b16, bf16 autocast, hyp scratch-low, one
+     epoch with host augmentation in min(8, cpu count) worker processes and
+     one with --device-aug --cache device, each ending in the EMA validation
+     through K1 and K2: finite losses, seg_overflow printed, both launch
+     counters rising in each; ``segment val --half --save-json`` on the
+     device run's best.ckpt equal (1e-6) to its epoch's EMA validation, COCO
+     bbox and segm scored; in f32, evaluate_segment with the kernels against
+     K1's plain version (identical rows and metrics) and against both plain
+     versions (equal counts, >= 99% of the detections scoring over 1.01x
+     their image's max_det cut matched within 1 px, every matched mask IoU
+     >= 0.99); K1 at b16 x 30 720 and K2 at the seg val stem beside their
+     bounds and plain versions; the b16 step by CUDA events with device
+     augmentation and on a host-augmented batch already on the card.
 Then one JSON line with each kernel's launches (in all, and per main-path
 call), error, times, bound and yardstick, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
@@ -140,6 +157,15 @@ HOST_WORKERS = min(16, os.cpu_count() or 1)
 # biases of their weights (20-80 detections an image at conf 0.25)
 SMOKE_SOURCES = 32
 HEAD_BIAS = -3.0
+# phase 17: segmentation training and validation, yolov5s-seg at b16 (the
+# default of segment train), polygon-labelled BMPs of the val shapes
+SEG_TRAIN_IMAGES = 64
+SEG_VAL_IMAGES = 32
+SEG_BATCH = 16
+SEG_WORKERS = min(8, os.cpu_count() or 1)
+# the share of segment val's detections (f32) that the run through both
+# plain versions must match within 1 px, as phase 8's
+SEG_MATCH_MIN = 0.99
 
 
 def _import_port():
@@ -1645,6 +1671,381 @@ def phase_segment(dev, root, smi):
     return launches
 
 
+def write_seg_split(root, split, n, seed, shapes=VAL_SHAPES):
+    """n BMPs of the (h, w) ``shapes`` in turn with 1-6 filled polygons each
+    (triangles and 12-vertex ellipses, one per cell of a 3x2 grid) on a noisy
+    background, and their YOLO labels, every label a polygon, under
+    images/<split> and labels/<split>. Returns the number of labels."""
+    from yolov5_tpu_torch.data.cv import fill_poly
+    from yolov5_tpu_torch.data.imageio import imwrite
+
+    root = Path(root)
+    (root / "images" / split).mkdir(parents=True)
+    (root / "labels" / split).mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    n_labels = 0
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        im = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+        rows = []
+        for cell in rng.permutation(6)[:rng.integers(1, 7)]:
+            cw, ch = w / 3, h / 2
+            cx = (cell % 3 + rng.uniform(0.35, 0.65)) * cw
+            cy = (cell // 3 + rng.uniform(0.35, 0.65)) * ch
+            rx, ry = rng.uniform(0.15, 0.35) * cw, rng.uniform(0.15, 0.35) * ch
+            k = 3 if rng.random() < 0.5 else 12
+            ang = rng.uniform(0, 2 * np.pi) + np.arange(k) * 2 * np.pi / k
+            poly = np.stack([cx + rx * np.cos(ang), cy + ry * np.sin(ang)], 1)
+            c = int(rng.integers(0, VAL_CLASSES))
+            fill_poly(im, np.round(poly).astype(np.int32),
+                      ((90, 200, 40), (230, 60, 120), (40, 120, 250))[c])
+            rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in poly))
+        imwrite(root / "images" / split / f"{i:04d}.bmp", im)
+        (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+        n_labels += len(rows)
+    return n_labels
+
+
+def phase_seg_data(root):
+    """Phase 17's polygon-labelled train and val splits and their YAML."""
+    t0 = time.perf_counter()
+    root = Path(root)
+    n_train = write_seg_split(root, "train_seg", SEG_TRAIN_IMAGES, seed=7)
+    n_val = write_seg_split(root, "val_seg", SEG_VAL_IMAGES, seed=8)
+    data = root / "seg.yaml"
+    names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
+    data.write_text(f"path: {root}\ntrain: images/train_seg\nval: images/val_seg\n"
+                    f"nc: {VAL_CLASSES}\nnames: [{names}]\n")
+    print(f"seg data: {SEG_TRAIN_IMAGES} train BMPs ({n_train} polygons) and {SEG_VAL_IMAGES} "
+          f"val BMPs ({n_val} polygons) of (h, w) {VAL_SHAPES}, triangles and ellipses, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return data
+
+
+class _Tee(io.TextIOBase):
+    """Standard output kept as it is written, and still written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _seg_cli(argv):
+    """``python -m yolov5_tpu_torch.segment <argv>`` in this process, with
+    what it printed."""
+    from yolov5_tpu_torch.segment import main
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = main(argv)
+    return out, "".join(tee.text)
+
+
+@contextlib.contextmanager
+def captured_seg_batches():
+    """Record each batch's detections (numpy rows and the padded tensors)
+    and prototypes that run_segment.evaluate_segment scores while open."""
+    from yolov5_tpu_torch.train import run_segment
+
+    saved = run_segment.detections_to_numpy, run_segment._mask_ious
+    batches = []
+
+    def rows_of(dets):
+        rows = saved[0](dets)
+        batches.append({"rows": rows, "dets": dets})
+        return rows
+
+    def ious_of(proto, dets, *a):
+        batches[-1]["proto"] = proto
+        return saved[1](proto, dets, *a)
+
+    run_segment.detections_to_numpy, run_segment._mask_ious = rows_of, ious_of
+    try:
+        yield batches
+    finally:
+        run_segment.detections_to_numpy, run_segment._mask_ious = saved
+
+
+def phase_segment_train(dev, data, root, smi):
+    """``segment train`` for yolov5s-seg 640 b16 bf16, one epoch with host
+    augmentation and one with --device-aug and the device cache, each ending
+    in the EMA validation through K1 and K2. Returns (launches, the
+    device-augmented run's directory)."""
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    base = ["train", "--data", str(data), "--cfg", "yolov5s-seg", "--imgsz", str(IMGSZ),
+            "--batch-size", str(SEG_BATCH), "--epochs", "1", "--workers", str(SEG_WORKERS),
+            "--project", str(Path(root) / "runs"), "--exist-ok", "--device", str(dev)]
+    launches = {"stem_conv": 0, "greedy_nms": 0}
+    runs = {}
+    for name, extra in (("seg_host", []), ("seg_device", ["--device-aug", "--cache", "device"])):
+        # the counted runs of the segmentation training path
+        stem_conv.launches = greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        out, text = _seg_cli(base + ["--name", name] + extra)
+        wall = time.perf_counter() - t0
+        got = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+        if min(got.values()) < 1:
+            raise AssertionError(f"segment train {name}: launches {got}")
+        save_dir = Path(out["save_dir"])
+        rows = _csv_rows(save_dir)
+        losses = [float(rows[0][f"train/{k}"]) for k in ("box", "obj", "cls", "seg", "total")]
+        if len(rows) != 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"segment train {name}: {len(rows)} epochs, losses {losses}")
+        for f in ("last.ckpt", "best.ckpt"):
+            if not (save_dir / f).exists():
+                raise AssertionError(f"segment train {name}: {f} not written")
+        m = re.search(r"WARNING: (\d+) mask-loss candidates exceeded", text)
+        overflow = int(m.group(1)) if m else 0
+        for k in launches:
+            launches[k] += got[k]
+        runs[name] = save_dir
+        print(f"segment train {name}: yolov5s-seg {IMGSZ}px bf16 b{SEG_BATCH}, 1 epoch x "
+              f"{SEG_TRAIN_IMAGES // SEG_BATCH} steps, {wall:.1f} s; losses (box, obj, cls, "
+              f"seg, total) {np.round(losses, 5).tolist()}; seg_overflow {overflow}; train "
+              f"img/s {float(rows[0]['train/imgs_per_sec']):.2f} (results.csv, host clock over "
+              f"the epoch); EMA val box mAP50 {float(rows[0]['val/box_map50']):.5f}, mask "
+              f"mAP50 {float(rows[0]['val/mask_map50']):.5f}; launches in the epoch's val "
+              f"{got} | {smi}")
+    return launches, runs["seg_device"]
+
+
+def _seg_pairs(a, b, px=1.0):
+    """Detections of two evaluate_segment runs (captured batches), matched
+    per image: for each detection of a, in score order, the free one of b
+    with its class and box within px; then the binary masks
+    (process_mask(upsample=True) > 0.5) of each matched pair. Returns (equal
+    counts, detections of a, matched, lowest mask IoU of a matched pair,
+    matched with mask IoU >= 0.99, unmatched (rank in its image, score over
+    the image's lowest))."""
+    import torch
+
+    from yolov5_tpu_torch.ops.masks import process_mask
+
+    same = True
+    n = pairs = good = 0
+    worst = 1.0
+    missed = []
+    for ba, bb in zip(a, b):
+        for i, (ra, rb) in enumerate(zip(ba["rows"], bb["rows"])):
+            same &= len(ra) == len(rb)
+            n += len(ra)
+            used = np.zeros(len(rb), bool)
+            ia, ib = [], []
+            for rank, j in enumerate(np.argsort(-ra[:, 4], kind="stable")):
+                d = np.abs(rb[:, :4] - ra[j, :4]).max(1) if len(rb) else np.zeros(0)
+                ok = ~used & (rb[:, 5] == ra[j, 5]) & (d <= px)
+                if ok.any():
+                    k = np.flatnonzero(ok)[np.argmin(d[ok])]
+                    used[k] = True
+                    ia.append(j)
+                    ib.append(k)
+                else:
+                    missed.append((rank, float(ra[j, 4] / ra[:, 4].min())))
+            if not ia:
+                continue
+            masks = []
+            for batch, idx in ((ba, ia), (bb, ib)):
+                t = torch.as_tensor(np.asarray(idx), device=batch["proto"].device)
+                dets = batch["dets"]
+                masks.append(process_mask(batch["proto"][i], dets.masks[i][t], dets.boxes[i][t],
+                                          (IMGSZ, IMGSZ), upsample=True) > 0.5)
+            inter = (masks[0] & masks[1]).sum((1, 2)).float()
+            union = (masks[0] | masks[1]).sum((1, 2)).float()
+            iou = torch.where(union > 0, inter / union.clamp(min=1), 1.0)
+            pairs += len(ia)
+            good += int((iou >= 0.99).sum())
+            worst = min(worst, float(iou.min()))
+    return same, n, pairs, worst, good, missed
+
+
+def phase_segment_val(dev, data, run_dir, smi):
+    """``segment val --save-json`` on the device-augmented run's best.ckpt
+    (the counted run, bf16 as trained): its metrics equal the epoch's EMA
+    validation, COCO bbox and segm scored. Then, in f32, evaluate_segment
+    with the kernels against the run through both plain versions: the same
+    detections as sets, mask IoU >= 0.99 on matched ones. Then K1 and K2 at
+    the seg val shapes. Returns (launches, kernel times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.infer_segment import Segmenter
+    from yolov5_tpu_torch.ops.nms import non_max_suppression
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.train.run_segment import evaluate_segment
+    from yolov5_tpu_torch.utils.general import check_dataset
+
+    best = run_dir / "best.ckpt"
+    row = _csv_rows(run_dir)[-1]
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    out, _ = _seg_cli(["val", "--data", str(data), "--weights", str(best), "--imgsz", str(IMGSZ),
+                       "--batch-size", str(SEG_BATCH), "--half", "--workers", str(SEG_WORKERS),
+                       "--save-json", str(run_dir / "seg.json"), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"segment val: launches {launches}")
+    pairs = {k: (float(row[f"val/{k}"]), out[a][b]) for k, (a, b) in {
+        "box_map50": ("box", "map50"), "box_map": ("box", "map"),
+        "mask_map50": ("mask", "map50"), "mask_map": ("mask", "map")}.items()}
+    if any(abs(x - y) > 1e-6 for x, y in pairs.values()):
+        raise AssertionError(f"segment val on best.ckpt {pairs} (training-time, segment val)")
+    cb, cs = out["coco_bbox"], out["coco_segm"]
+    if not all(np.isfinite([cb["map"], cb["map50"], cs["map"], cs["map50"]])):
+        raise AssertionError(f"segment val: COCO scores {cb}, {cs}")
+    print(f"segment val on best.ckpt (bf16, --save-json): reproduces the EMA validation "
+          f"{pairs}; COCO bbox mAP {cb['map']:.5f} mAP50 {cb['map50']:.5f}, COCO segm mAP "
+          f"{cs['map']:.5f} mAP50 {cs['map50']:.5f}; {wall:.1f} s in all (JSON rows and "
+          f"scoring on the host), evaluate_segment {out['speed_ms']:.3f} ms/img (host clock, "
+          f"b{SEG_BATCH}); launches {launches} | {smi}")
+
+    # f32, the weights of phase 15 (BN statistics of these images, so that
+    # scores spread with the image): the path with the kernels against the
+    # plain versions
+    torch_tf32_off()
+    _, loader = create_loader(check_dataset(str(data))["val"], img_size=IMGSZ,
+                              batch_size=SEG_BATCH, workers=SEG_WORKERS, masks=True)
+    images = next(iter(loader))["images"]
+    seg = Segmenter(calibrated_weights("yolov5s-seg", 0, images[:4], dev), cfg="yolov5s-seg",
+                    device=dev)
+    with uncounted():
+        with captured_seg_batches() as a:
+            res_a = evaluate_segment(seg.forward, loader, dev, seg.nc)
+        with routed(nms=greedy_nms_plain), captured_seg_batches() as k1p:
+            res_k1p = evaluate_segment(seg.forward, loader, dev, seg.nc)
+        with routed(stem_conv_plain, greedy_nms_plain), captured_seg_batches() as b:
+            res_b = evaluate_segment(seg.forward, loader, dev, seg.nc)
+    k1_same = (all(np.array_equal(x, y) for ba, bb in zip(a, k1p)
+                   for x, y in zip(ba["rows"], bb["rows"]))
+               and {k: res_a[k] for k in ("box", "mask")}
+               == {k: res_k1p[k] for k in ("box", "mask")})
+    print(f"segment val f32 through K1's plain version: rows and metrics "
+          f"{'identical' if k1_same else 'DIFFER'} | {smi}")
+    if not k1_same:
+        raise AssertionError("segment val: K1 against its plain version differ")
+    same, n, matched, worst, good, missed = _seg_pairs(a, b)
+    ranks = [r for r, _ in missed] or [0]
+    over = [q for _, q in missed] or [0.0]
+    print(f"segment val f32, kernels against both plain versions: counts "
+          f"{'equal' if same else 'DIFFER'}, {matched}/{n} detections matched within 1 px (the "
+          f"{len(missed)} unmatched ranked {min(ranks)}-{max(ranks)} in their images, at "
+          f"{min(over):.6f}-{max(over):.6f}x its lowest score), {good} with mask IoU >= 0.99 "
+          f"(lowest {worst:.4f}); box mAP50 {res_a['box']['map50']:.6f} / "
+          f"{res_b['box']['map50']:.6f}, mask mAP50 {res_a['mask']['map50']:.6f} / "
+          f"{res_b['mask']['map50']:.6f}; {res_a['speed_ms']:.3f} ms/img with the kernels | {smi}")
+    if not same or matched < SEG_MATCH_MIN * n or good != matched:
+        raise AssertionError(f"segment val vs both plain versions: counts equal {same}, "
+                             f"{matched}/{n} matched, {good}/{matched} with mask IoU >= 0.99")
+
+    # K1 at b16 x 30 720 and K2 at the seg val stem (bf16, as trained)
+    seg16 = Segmenter(str(best), device=dev, half=True)
+    images = torch.from_numpy(images).to(dev)
+    captured = {}
+
+    def capture_nms(boxes, scores, thres, max_det):
+        captured.update(nms=(boxes, scores, thres, max_det))
+        return greedy_nms(boxes, scores, thres, max_det)
+
+    def capture_stem(x, w, bias):
+        captured.update(stem=(x, w, bias))
+        return stem_conv(x, w, bias)
+
+    with uncounted(), routed(capture_stem, capture_nms):
+        preds, _ = seg16.forward(images)
+        non_max_suppression(preds, conf_thres=0.001, iou_thres=0.6, multi_label=True,
+                            max_det=300, nc=seg16.nc)
+    with uncounted():
+        k1 = cuda_ms(lambda: greedy_nms(*captured["nms"]), iters=20)
+        k1_plain = cuda_ms(lambda: greedy_nms_plain(*captured["nms"]), iters=2, warmup=1)
+        k1_bound, k1_by, n_iou = nms_bound_ms(*captured["nms"])
+        x, w, bias = captured["stem"]
+        k2 = cuda_ms(lambda: stem_conv(x, w, bias), iters=50)
+        k2_alone = cuda_ms(stem_kernel_call(x, w, bias), iters=50)
+        k2_plain = cuda_ms(lambda: stem_conv_plain(x, w, bias), iters=20)
+        wd, bd = w.detach().to(x.dtype), bias.detach().to(x.dtype)
+        k2_cudnn = cuda_ms(lambda: F.silu(F.conv2d(x, wd, bd, stride=2, padding=2)), iters=50)
+        k2_bound, k2_by = stem_bound_ms(x, w.shape[0])
+    boxes = captured["nms"][0]
+    print(f"K1 b{boxes.shape[0]}x{boxes.shape[1]} (segment val, IoU 0.6, max_det 300, "
+          f"multi-label, 32 coefficient columns gathered after it): {k1:.4f} ms; bound "
+          f"{k1_bound:.5f} ms ({k1_by}: {n_iou} IoUs greedy needs on these inputs), "
+          f"{100 * k1_bound / k1:.2f}% of it; plain {k1_plain:.3f} ms | {smi}")
+    print(f"K2 b{x.shape[0]}x{x.shape[2]} {str(x.dtype).split('.')[-1]} c2={w.shape[0]} "
+          f"(segment val stem, BN-folded EMA model): {k2:.4f} ms through its wrapper, "
+          f"{k2_alone:.4f} ms the kernel alone; bound {k2_bound:.4f} ms ({k2_by}), "
+          f"{100 * k2_bound / k2:.1f}% of it; plain {k2_plain:.3f} ms; cuDNN "
+          f"{str(x.dtype).split('.')[-1]} conv + SiLU {k2_cudnn:.3f} ms | {smi}")
+    return launches
+
+
+def phase_segment_times(dev, data, smi):
+    """The yolov5s-seg b16 step by CUDA events: with device augmentation
+    from the device cache, and on a host-augmented batch already on the
+    card."""
+    import torch
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.data.device_aug import (aug_generator, mosaic_in_batch_seg,
+                                                  rasterize_batch_masks)
+    from yolov5_tpu_torch.data.device_cache import build_cache_arrays, to_device
+    from yolov5_tpu_torch.models.yolo import SegmentationModel
+    from yolov5_tpu_torch.train.loss import ComputeSegmentLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.general import check_dataset
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+
+    hyp = load_hyp(None)
+    ds, loader = create_loader(check_dataset(str(data))["train"], img_size=IMGSZ,
+                               batch_size=SEG_BATCH, augment=True, hyp=hyp, workers=1,
+                               masks=True)
+    model = SegmentationModel("yolov5s-seg", nc=VAL_CLASSES).to(dev).to(
+        memory_format=torch.channels_last)
+    scaled = scale_hyp(hyp, nl=3, nc=VAL_CLASSES, imgsz=IMGSZ)
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), scaled, 3,
+                                              len(loader), SEG_BATCH))
+    loss_fn = ComputeSegmentLoss(model.anchors_per_stride, VAL_CLASSES, scaled, nm=model.nm)
+    mask_shape = (IMGSZ // 4, IMGSZ // 4)
+    cache = to_device(build_cache_arrays(ds, loader.max_labels, segments_v=32), dev)
+    dev_step = make_train_step(loss_fn, device_aug_hyp=hyp, has_masks=True,
+                               mask_shape=mask_shape)
+    idx = {"idx": torch.arange(SEG_BATCH, device=dev)}
+    with uncounted():
+        t_dev = cuda_ms(lambda: dev_step(state, idx, cache), iters=5, warmup=2)
+        host_step = make_train_step(loss_fn, has_masks=True, mask_shape=mask_shape)
+        hb = next(iter(loader))
+        hb = {k: torch.from_numpy(hb[k]).to(dev) for k in ("images", "targets", "valid",
+                                                             "masks")}
+        t_host = cuda_ms(lambda: host_step(state, hb), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # the device path's GT masks alone, on a mosaic's polygons
+        raw = {k: cache[k][idx["idx"]] for k in ("images", "hw", "targets", "segments", "valid")}
+        _, _, segs, valid = mosaic_in_batch_seg(*raw.values(), aug_generator(0, 0, dev), hyp,
+                                                pool=cache, self_idx=idx["idx"])
+        t_rast = cuda_ms(lambda: rasterize_batch_masks(segs, valid, *mask_shape), iters=5)
+        rast_line = profile_line(lambda: rasterize_batch_masks(segs, valid, *mask_shape),
+                                 f"rasterize_batch_masks b{SEG_BATCH} x {segs.shape[1]} slots "
+                                 f"at {mask_shape[0]}^2", smi)
+    loader.close()
+    print(f"segment train step, yolov5s-seg b{SEG_BATCH} {IMGSZ}px bf16 (CUDA events): with "
+          f"device augmentation from the device cache {t_dev:.3f} ms ({SEG_BATCH / t_dev * 1e3:.1f}"
+          f" img/s); on a host-augmented batch already on the card {t_host:.3f} ms "
+          f"({SEG_BATCH / t_host * 1e3:.1f} img/s); peak memory {peak:.2f} GiB; the device "
+          f"path's GT masks alone {t_rast:.3f} ms ({segs.shape[1]} polygon slots an image, "
+          f"{int(valid.sum())} of {valid.numel()} real) | {smi}")
+    print(rast_line)
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -1705,9 +2106,14 @@ def main():
         weights, detect_launches = phase_detect(dev, root, smi)
         serve_launches = phase_serve(dev, root, weights, smi)
         segment_launches = phase_segment(dev, root, smi)
+        seg_data = phase_seg_data(root)
+        seg_train_launches, seg_run = phase_segment_train(dev, seg_data, root, smi)
+        seg_val_launches = phase_segment_val(dev, seg_data, seg_run, smi)
+        phase_segment_times(dev, seg_data, smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
+                + seg_train_launches[k] + seg_val_launches[k]
                 for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
@@ -1715,7 +2121,9 @@ def main():
          "launches_per_call": per_call["greedy_nms"], "max_abs_err": nms_err,
          **times["greedy_nms"]},
         {"name": "stem_conv", "route": "cuda", "source": "yolov5_tpu_torch/csrc/stem_conv.cu",
-         "replaces": "yolov5_tpu/ops/stem_pallas.py:180", "launches": launches["stem_conv"],
+         "replaces": "yolov5_tpu/ops/stem_pallas.py:180",
+         "also_replaces": "yolov5_tpu/ops/stem_pallas.py:151 (K2b, the same function in the "
+                          "MXU-transposed layout)", "launches": launches["stem_conv"],
          "launches_per_call": per_call["stem_conv"], "max_abs_err": stem_err,
          **times["stem_conv"]},
     ]

@@ -507,3 +507,106 @@ def test_detect_run_on_the_card(dev, tmp_path, monkeypatch):
         want[:, :4] = scale_boxes_np((160, 160), want[:, :4], im0.shape[:2])
         np.testing.assert_array_equal(r, want)
         assert imread(save_dir / Path(path).name).shape == im0.shape
+
+
+# ---------------------------------------------------------------------------
+# segmentation training and validation
+# ---------------------------------------------------------------------------
+
+def _star_polygons(rng, shape, v, span):
+    c = rng.uniform(-0.1 * span, 1.1 * span, shape + (1, 2))
+    r = rng.uniform(2, 0.4 * span, shape + (1, 1))
+    ang = np.sort(rng.uniform(0, 2 * np.pi, shape + (v,)), -1)
+    rad = r[..., 0] * rng.uniform(0.4, 1.0, shape + (v,))
+    p = np.stack([c[..., 0] + rad * np.cos(ang), c[..., 1] + rad * np.sin(ang)], -1)
+    return np.floor(p).astype(np.float32)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_rasterize_cuda_equals_cpu(dev, overlap):
+    """The rasterizer's searchsorted, uint8 scatter-add and cumulative sum
+    on the card: the CPU's pixels, at the training path's shape."""
+    from yolov5_tpu_torch.ops.rasterize import rasterize, rasterize_overlap
+
+    rng = np.random.default_rng(1)
+    poly = torch.from_numpy(_star_polygons(rng, (4, 64), 32, 160))
+    nv = torch.from_numpy(np.where(rng.random((4, 64)) < 0.5, 32, 0))
+    fn = rasterize_overlap if overlap else rasterize
+    got = fn(poly.to(dev), nv.to(dev), 160, 160).cpu()
+    assert torch.equal(got, fn(poly, nv, 160, 160))
+    assert got.any()
+
+
+def test_segment_loss_cuda_matches_cpu(dev):
+    """ComputeSegmentLoss on the card against the CPU on the same inputs,
+    within 1e-5 relative (f32 products on the card, TF32 off)."""
+    from yolov5_tpu_torch.train.loss import ComputeSegmentLoss
+
+    g = torch.Generator().manual_seed(2)
+    maps = [torch.randn((2, n, n, 3, 40), generator=g) for n in (16, 8, 4)]
+    proto = torch.randn((2, 32, 32, 32), generator=g)
+    t = torch.rand((2, 6, 5), generator=g) * 0.5 + 0.2
+    t[..., 0] = torch.randint(0, 3, (2, 6), generator=g).float()
+    valid = torch.rand((2, 6), generator=g) < 0.8
+    masks = torch.randint(0, 7, (2, 32, 32), generator=g, dtype=torch.int32)
+    anchors = (((1.25, 1.625), (2.0, 3.75), (4.125, 2.875)),) * 3
+    fn = ComputeSegmentLoss(anchors, 3, {"box": 0.05, "obj": 1.0, "cls": 0.5}, seg_k=9)
+    ref_total, ref = fn((maps, proto), t, valid, masks)
+    total, got = fn(([m.to(dev) for m in maps], proto.to(dev)), t.to(dev), valid.to(dev),
+                    masks.to(dev))
+    torch.testing.assert_close(total.cpu(), ref_total, rtol=1e-5, atol=0)
+    for k in ref:
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=1e-5, atol=0)
+    assert ref["seg_overflow"] > 0
+
+
+def test_segment_train_and_val_on_the_card(dev, tmp_path, monkeypatch):
+    """``segment train`` with --device-aug (yolov5n-seg, 128 px, bf16) then
+    ``segment val`` on best.ckpt: K1 and K2 in both, finite losses, and val
+    reproducing the epoch's EMA validation; in f32 the validation through
+    K1's plain version gives the same metrics."""
+    from yolov5_tpu_torch.infer_segment import Segmenter
+    from yolov5_tpu_torch.data.cv import fill_poly
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.ops import nms as nms_mod
+    from yolov5_tpu_torch.segment import main
+    from yolov5_tpu_torch.train.run_segment import evaluate_segment
+
+    rng = np.random.default_rng(3)
+    for split, n in (("train", 8), ("val", 4)):
+        (tmp_path / "images" / split).mkdir(parents=True)
+        (tmp_path / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            im = rng.integers(0, 80, (96, 128, 3)).astype(np.uint8)
+            rows = []
+            for _ in range(2):
+                c = rng.uniform([20, 20], [108, 76])
+                ang = np.arange(7) * 2 * np.pi / 7
+                poly = np.stack([c[0] + 15 * np.cos(ang), c[1] + 12 * np.sin(ang)], 1)
+                fill_poly(im, np.round(poly).astype(np.int32), (200, 60, 40))
+                rows.append("0 " + " ".join(f"{x / 128:.6f} {y / 96:.6f}" for x, y in poly))
+            imwrite(tmp_path / "images" / split / f"{i:03d}.bmp", im)
+            (tmp_path / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    data = tmp_path / "seg.yaml"
+    data.write_text(f"path: {tmp_path}\ntrain: images/train\nval: images/val\nnc: 1\n"
+                    "names: [blob]\n")
+    n_stem, n_nms = stem_conv.launches, greedy_nms.launches
+    tr = main(["train", "--data", str(data), "--cfg", "yolov5n-seg", "--imgsz", "128",
+               "--batch-size", "4", "--epochs", "1", "--device-aug", "--workers", "1",
+               "--project", str(tmp_path / "runs"), "--name", "a"])
+    assert stem_conv.launches > n_stem and greedy_nms.launches > n_nms
+    with open(f"{tr['save_dir']}/results.csv") as f:
+        row = list(csv.DictReader(f))[0]
+    assert all(np.isfinite(float(row[f"train/{k}"])) for k in ("box", "obj", "cls", "seg"))
+    best = f"{tr['save_dir']}/best.ckpt"
+    va = main(["val", "--data", str(data), "--weights", best, "--imgsz", "128", "--half",
+               "--batch-size", "4", "--workers", "1"])
+    for part in ("box", "mask"):
+        assert abs(va[part]["map"] - float(row[f"val/{part}_map"])) <= 1e-6
+    seg = Segmenter(best, device=dev)
+    _, loader = create_loader(str(tmp_path / "images" / "val"), img_size=128, batch_size=4,
+                              workers=1, masks=True)
+    a = evaluate_segment(seg.forward, loader, dev, seg.nc)
+    monkeypatch.setattr(nms_mod, "greedy_nms", greedy_nms_plain)
+    b = evaluate_segment(seg.forward, loader, dev, seg.nc)
+    assert {k: a[k] for k in ("box", "mask")} == {k: b[k] for k in ("box", "mask")}

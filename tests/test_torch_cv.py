@@ -8,7 +8,9 @@ the pixels and bit-exact where the inverse map lands on whole pixels;
 worst case here: OpenCV 5 maps coordinates in float32 in another order);
 ``rotation_matrix_2d`` equal; the HSV conversions bit-exact over every
 input, in OpenCV's vector loop and in its scalar tail; ``fill_poly`` the
-same pixels as ``cv2.drawContours(..., FILLED)``."""
+same pixels as ``cv2.drawContours(..., FILLED)``; float32 ``resize``
+(linear) within 2.4e-7 of OpenCV's on values in [0, 1], its threshold at 0.5
+equal; ``contour_area`` equal to ``cv2.contourArea``."""
 
 import math
 
@@ -175,3 +177,43 @@ def test_fill_poly_equals_cv2_draw_contours(kind):
         cv2.drawContours(ref, [pts], -1, (1, 1, 1), cv2.FILLED)
         got = cv.fill_poly(np.zeros((h, w, 3), np.uint8), pts, (1, 1, 1))
         np.testing.assert_array_equal(got, ref, err_msg=f"{h}x{w} {pts.tolist()}")
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_PAIRS + [((16, 16), (64, 64)), ((160, 160), (640, 640)),
+                                                    ((640, 640), (480, 640))])
+@pytest.mark.parametrize("kind", ["noise", "binary", "cropped"])
+def test_resize_float32_linear_matches_cv2(src, dst, kind):
+    """The float path of segm JSON rows: sigmoid-like masks, 0/1 masks and
+    masks zero outside a box (the rows and columns with no nonzero tap are
+    skipped, and must still come out 0)."""
+    rng = np.random.default_rng(src[0] * 7 + dst[1])
+    im = rng.random(src).astype(np.float32)
+    if kind == "binary":
+        im = (im > 0.5).astype(np.float32)
+    elif kind == "cropped":
+        im[: src[0] // 3] = 0
+        im[:, src[1] // 2:] = 0
+    ref = cv2.resize(im, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    got = cv.resize(im, dst[::-1], "linear")
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2.4e-7)
+    near = np.abs(ref - 0.5) <= 2.4e-7
+    np.testing.assert_array_equal((got > 0.5)[~near], (ref > 0.5)[~near])
+
+
+def test_resize_float32_takes_linear_only():
+    with pytest.raises(ValueError, match="linear"):
+        cv.resize(np.zeros((8, 8), np.float32), (4, 4), "area")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_contour_area_equals_cv2(dtype):
+    """Shoelace in float64 over float32 vertices in OpenCV's order: equal
+    values, so equal areas tie as they do in OpenCV (rasterize_masks sorts
+    by them)."""
+    rng = np.random.default_rng(13)
+    for _ in range(500):
+        n = int(rng.integers(1, 40))
+        pts = rng.uniform(-50, 700, (n, 2))
+        pts = (np.round(pts) if rng.random() < 0.3 else pts).astype(dtype)
+        assert cv.contour_area(pts) == cv2.contourArea(pts)

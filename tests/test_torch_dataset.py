@@ -144,17 +144,20 @@ def test_loader_batches_equal_jax(dataset, rect, cache):
 
 
 def test_loader_single_cls_and_unported_options(dataset):
-    """single_cls; host augmentation is ported now (an augmented loader
-    yields batches); the JAX loader's options the port has not (a per-rank
-    shard, segmentation masks) are not accepted."""
+    """single_cls; host augmentation and segmentation masks are ported now
+    (an augmented loader yields batches, a mask loader mask batches: empty
+    for box labels, as in the JAX package); the JAX loader's option the port
+    has not (a per-rank shard) is not accepted."""
     ds, _ = pds.create_loader(str(dataset), img_size=160, single_cls=True)
     assert all((l[:, 0] == 0).all() for l in ds.labels)
     _, loader = pds.create_loader(str(dataset), img_size=160, batch_size=2, augment=True,
                                   workers=1)
     assert next(iter(loader))["images"].shape == (2, 160, 160, 3)
-    for option in ("shard", "masks"):
-        with pytest.raises(TypeError, match=option):
-            pds.create_loader(str(dataset), **{option: True})
+    _, loader = pds.create_loader(str(dataset), img_size=160, batch_size=2, masks=True)
+    masks = next(iter(loader))["masks"]
+    assert masks.shape == (2, 40, 40) and masks.dtype == np.int32 and not masks.any()
+    with pytest.raises(TypeError, match="shard"):
+        pds.create_loader(str(dataset), shard=True)
 
 
 def test_general_utils(tmp_path):

@@ -108,7 +108,8 @@ def test_port_imports_no_jax():
             "yolov5_tpu_torch.utils.net, yolov5_tpu_torch.utils.font, "
             "yolov5_tpu_torch.data.cv, yolov5_tpu_torch.data.augment, "
             "yolov5_tpu_torch.train.run, yolov5_tpu_torch.train.prefetch, "
-            "yolov5_tpu_torch.train.evolve\n"
+            "yolov5_tpu_torch.train.evolve, yolov5_tpu_torch.train.run_segment, "
+            "yolov5_tpu_torch.eval.rle, yolov5_tpu_torch.ops.rasterize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'yolov5_tpu', 'cv2', 'PIL')]\n"
             "assert not bad, bad\n")

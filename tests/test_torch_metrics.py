@@ -115,8 +115,8 @@ def test_coco_eval_lite(seed, tmp_path):
     p = tmp_path / "dt.json"
     p.write_text(json.dumps(dt))
     _same(pcoco.score_detections_json(str(p), gt), jcoco.score_detections_json(dt, gt))
-    with pytest.raises(NotImplementedError, match="segm"):
-        pcoco.COCOEvalLite(gt, dt, iou_type="segm")
+    with pytest.raises(ValueError, match="iou_type"):
+        pcoco.COCOEvalLite(gt, dt, iou_type="keypoints")
 
 
 @pytest.mark.parametrize("coco91", [False, True])

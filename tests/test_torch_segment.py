@@ -325,11 +325,25 @@ def test_segment_cli_predict(seg_case):
 
 
 @pytest.mark.parametrize("cmd", ["train", "val"])
-def test_segment_cli_train_val_not_ported(cmd):
-    from yolov5_tpu_torch.segment import main
+def test_segment_cli_train_val_not_ported(cmd, seg_case):
+    """train and val are ported now: each runs on the card by default and
+    raises without one; train needs --data unless it resumes."""
+    from yolov5_tpu_torch.segment import main, parse_opt
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main([cmd, "--data", "x.yaml"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root, src = seg_case
+    data = root / "seg.yaml"
+    data.write_text(f"path: {root / 'data'}\nval: images/val\ntrain: images/val\nnc: 3\n")
+    argv = [cmd, "--data", str(data), "--imgsz", "64"]
+    if cmd == "val":
+        argv += ["--weights", str(root / "seg.ckpt")]
+    assert parse_opt(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    if cmd == "train":
+        with pytest.raises(SystemExit):
+            parse_opt(["train"])
 
 
 def test_segmenter_defaults_to_the_card(seg_case):

@@ -259,3 +259,40 @@ def save_jax_checkpoint(cfg, path, anchors=None, ema=True, dtype=np.float32,
                             batch_stats=avg["batch_stats"] if ema else None, updates=9))
     save_checkpoint(path, state, model, epoch=3, best_fitness=0.25)
     return path
+
+
+def write_polygon_dataset(root, shapes, nc=3, seed=0, split="val", ext=".bmp"):
+    """A YOLO-layout segmentation set under ``root``: ``images/{split}/
+    {i:03d}{ext}`` of the given (h, w) shapes (24-bit BMP, written with
+    numpy) with 1-4 filled polygons of ``nc`` classes in separate cells of
+    a 2x2 grid (triangles and 12-vertex ellipses, so that neither the fill
+    nor the crop is a rectangle), and ``labels/{split}/{i:03d}.txt`` with
+    every label a polygon. Returns a data dict for ``check_dataset`` with
+    that split as ``val``."""
+    from pathlib import Path
+
+    from yolov5_tpu_torch.data.cv import fill_poly
+    from yolov5_tpu_torch.data.imageio import imwrite
+
+    root = Path(root)
+    (root / "images" / split).mkdir(parents=True, exist_ok=True)
+    (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    colors = ((90, 200, 40), (230, 60, 120), (40, 120, 250), (200, 200, 60))
+    for i, (h, w) in enumerate(shapes):
+        im = rng.integers(0, 80, (h, w, 3)).astype(np.uint8)
+        rows = []
+        for cell in rng.permutation(4)[:int(rng.integers(1, 5))]:
+            cx = (cell % 2 + rng.uniform(0.35, 0.65)) * w / 2
+            cy = (cell // 2 + rng.uniform(0.35, 0.65)) * h / 2
+            rx, ry = rng.uniform(0.2, 0.45) * w / 2, rng.uniform(0.2, 0.45) * h / 2
+            n = 3 if rng.random() < 0.5 else 12
+            ang = rng.uniform(0, 2 * np.pi) + np.arange(n) * 2 * np.pi / n
+            poly = np.stack([cx + rx * np.cos(ang), cy + ry * np.sin(ang)], 1)
+            c = int(rng.integers(0, nc))
+            fill_poly(im, np.round(poly).astype(np.int32), colors[c % len(colors)])
+            rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in poly))
+        imwrite(root / "images" / split / f"{i:03d}{ext}", im)
+        (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root), "val": f"images/{split}", "nc": nc,
+            "names": [f"c{j}" for j in range(nc)]}

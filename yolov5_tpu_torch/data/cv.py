@@ -7,7 +7,9 @@ Each function names its cv2 counterpart and how close it comes to OpenCV
 - ``resize``: ``cv2.resize`` with ``INTER_LINEAR`` (bit-exact: OpenCV's
   11-bit fixed-point weights and its vector code's rounding) and
   ``INTER_AREA`` for shrinking (bit-exact at integer factors, within one
-  level elsewhere);
+  level elsewhere); float32 masks with ``INTER_LINEAR`` (OpenCV's float
+  weights, within 2.4e-7 on values in [0, 1]: its sums round in another
+  order);
 - ``warp_affine``, ``warp_perspective``: ``cv2.warpAffine`` /
   ``cv2.warpPerspective``, bilinear, constant border (within one level on at
   most 0.1% of the pixels: OpenCV 5 maps coordinates in float32, as here, but
@@ -16,7 +18,8 @@ Each function names its cv2 counterpart and how close it comes to OpenCV
 - ``bgr_to_hsv``, ``hsv_to_bgr``: ``cv2.cvtColor`` with ``COLOR_BGR2HSV`` /
   ``COLOR_HSV2BGR`` on uint8 (bit-exact over every input);
 - ``fill_poly``: ``cv2.drawContours(..., FILLED)`` / ``cv2.fillPoly`` of one
-  int32 polygon, 8-connected (the same pixels).
+  int32 polygon, 8-connected (the same pixels);
+- ``contour_area``: ``cv2.contourArea`` (equal).
 There is one implementation of each: none of them calls OpenCV when it
 happens to be installed.
 """
@@ -102,15 +105,64 @@ def _resize_area(im, w, h):
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape((h, w) + im.shape[2:])
 
 
+def _resize_linear_f32(im, w, h):
+    """Float32 bilinear: OpenCV's float tables (weights 1 - f and f, the
+    horizontal taps moved onto the border pixel), the horizontal pass in
+    float32 and the vertical one as ``S0 * b0 + S1 * b1`` rounded once, as
+    its vector loop's multiply-add computes it. An exact 2x shrink is the
+    mean of each 2 x 2 block."""
+    h0, w0 = im.shape[:2]
+    src = im.reshape(h0, w0, -1).astype(_F32)
+    if w0 == 2 * w and h0 == 2 * h:
+        s = src.reshape(h, 2, w, 2, -1)
+        out = ((s[:, 0, :, 0] + s[:, 0, :, 1]) + (s[:, 1, :, 0] + s[:, 1, :, 1])) * _F32(0.25)
+        return out.reshape((h, w) + im.shape[2:])
+
+    def taps(n_src, n_dst):  # the coordinate in float64, its fraction cast to float32
+        f = (np.arange(n_dst) + 0.5) * (1.0 / (n_dst / n_src)) - 0.5
+        i0 = np.floor(f)
+        return i0.astype(np.int64), (f - i0).astype(_F32)
+
+    x0, fx = taps(w0, w)
+    edge = (x0 < 0) | (x0 >= w0 - 1)
+    fx[edge] = 0
+    x0 = np.clip(x0, 0, w0 - 1)
+    x1 = np.clip(x0 + 1, 0, w0 - 1)
+    y0, fy = taps(h0, h)
+    y1 = np.clip(y0 + 1, 0, h0 - 1)
+    y0 = np.clip(y0, 0, h0 - 1)
+    # only the output rows and columns with a nonzero tap are computed: the
+    # others are 0 * w + 0 * w = 0 exactly (a mask cropped to its box is
+    # mostly zeros)
+    nz = src != 0
+    cols = nz.any((0, 2))
+    cols = np.flatnonzero(cols[x0] | cols[x1])
+    rows = nz.any((1, 2))
+    rows = np.flatnonzero(rows[y0] | rows[y1])
+    out = np.zeros((h, w, src.shape[2]), _F32)
+    if len(rows) and len(cols):
+        xa, xb, f = x0[cols], x1[cols], fx[cols][:, None]
+        hor = src[:, xa] * (_F32(1) - f) + src[:, xb] * f
+        b0 = (_F32(1) - fy[rows]).astype(np.float64)[:, None, None]
+        prod1 = (hor[y1[rows]] * fy[rows][:, None, None]).astype(_F32)
+        out[np.ix_(rows, cols)] = (hor[y0[rows]].astype(np.float64) * b0 + prod1).astype(_F32)
+    return out.reshape((h, w) + im.shape[2:])
+
+
 def resize(im, dsize, interpolation="linear"):
     """``cv2.resize(im, dsize, interpolation=INTER_LINEAR | INTER_AREA)`` of a
     uint8 (h, w) or (h, w, c) image; ``dsize`` is (width, height).
     "linear" is bit-exact; "area" (shrinking only) is bit-exact at integer
-    factors and within one level elsewhere."""
+    factors and within one level elsewhere. A float32 image takes "linear"
+    only (OpenCV's float path, within 2.4e-7 on values in [0, 1])."""
     w, h = int(dsize[0]), int(dsize[1])
     h0, w0 = im.shape[:2]
     if (w, h) == (w0, h0):
         return im.copy()
+    if im.dtype == np.float32:
+        if interpolation != "linear":
+            raise ValueError(f"resize: float32 images take 'linear', not {interpolation!r}")
+        return _resize_linear_f32(im, w, h)
     if interpolation == "linear":
         # OpenCV resizes an exact 2x shrink as INTER_AREA
         if w0 == 2 * w and h0 == 2 * h:
@@ -256,6 +308,20 @@ def hsv_to_bgr(hsv):
 # ---------------------------------------------------------------------------
 
 _XY_SHIFT = 16  # OpenCV's polygon edges are 16.16 fixed point
+
+
+def contour_area(pts) -> float:
+    """``cv2.contourArea(pts)`` of one (n, 2) contour: the shoelace sum in
+    float64 over the vertices as float32, from the last vertex to the first,
+    halved and made positive (the same float64 operations in the same
+    order, so equal areas tie as OpenCV's do)."""
+    p = np.asarray(pts, _F32).reshape(-1, 2).astype(np.float64)
+    a = 0.0
+    px, py = p[-1] if len(p) else (0.0, 0.0)
+    for x, y in p:
+        a += px * y - py * x
+        px, py = x, y
+    return abs(a * 0.5)
 
 
 def _clip_line(w, h, p1, p2):

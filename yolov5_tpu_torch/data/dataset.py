@@ -15,10 +15,15 @@ batches: to the image content, with ``hw`` its size), ``valid`` (bs,
 max_labels), ``real`` (images that are not padding), ``indices`` and
 ``paths``.
 
+With ``masks`` a batch also holds the GT instance masks at img_size /
+mask_ratio, filled from the samples' polygons (``rasterize_masks``): one
+(bs, hm, wm) int32 index map with ``overlap``, else (bs, max_labels, hm,
+wm) uint8.
+
 Images are read by ``data.imageio`` (24-bit BMP with numpy, anything else
 with OpenCV) and resized by ``data.cv``: no path needs OpenCV for BMP
-input. The JAX package's per-rank shard, segmentation masks and native
-JPEG batches are not ported.
+input. The JAX package's per-rank shard and native JPEG batches are not
+ported.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import numpy as np
 
 from yolov5_tpu_torch.data.augment import (Albumentations, augment_hsv, copy_paste, flip_lr,
                                            flip_ud, mixup, random_perspective)
-from yolov5_tpu_torch.data.cv import resize
+from yolov5_tpu_torch.data.cv import contour_area, fill_poly, resize
 from yolov5_tpu_torch.data.imageio import image_size, imread
 from yolov5_tpu_torch.data.letterbox import letterbox
 
@@ -422,6 +427,36 @@ class YOLODataset:
         return np.ascontiguousarray(im), labels, segments
 
 
+def rasterize_masks(segments, labels, hm, wm, img_px, overlap=True):
+    """Polygon segments (pixels at img_px scale) -> instance masks at (hm,
+    wm), as the JAX package fills them (reference polygons2masks[_overlap]):
+    each polygon scaled to mask pixels and truncated to int32, filled by
+    ``cv.fill_poly`` in descending order of its float area (``contour_area``
+    of the scaled float polygon). With ``overlap`` one (hm, wm) int32 map,
+    segment i written as i + 1 (the smaller on top); else (max(len(labels),
+    1), hm, wm) uint8, one 0/1 mask per segment."""
+    if overlap:
+        out = np.zeros((hm, wm), np.int32)
+    else:
+        out = np.zeros((max(len(labels), 1), hm, wm), np.uint8)
+    scale_x, scale_y = wm / img_px, hm / img_px
+    areas = []
+    polys = []
+    for seg in segments:
+        p = seg.copy()
+        p[:, 0] *= scale_x
+        p[:, 1] *= scale_y
+        polys.append(p.astype(np.int32))
+        areas.append(contour_area(p.astype(np.float32)))
+    order = np.argsort(-np.asarray(areas)) if areas else []
+    for i in order:
+        if overlap:
+            fill_poly(out, polys[i], int(i) + 1)
+        else:
+            fill_poly(out[i], polys[i], 1)
+    return out
+
+
 def rect_batch_shapes(shapes, batch_size, img_size, stride=32, pad=0.5,
                       buckets=None):
     """Rect-val batching: sort by aspect ratio, give each batch the smallest
@@ -523,7 +558,8 @@ class Loader:
     * 1009 + bi * 7919) * 31 + 7``, wherever the batch is built."""
 
     def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128, workers=8,
-                 rect=False, stride=32, pad=0.5, seed=0, shuffle=None, quad=False):
+                 rect=False, stride=32, pad=0.5, seed=0, shuffle=None, quad=False,
+                 masks=False, mask_ratio=4, overlap=True):
         self.ds = dataset
         self.bs = batch_size
         if max_labels in (None, "auto"):
@@ -535,14 +571,17 @@ class Loader:
         self.shuffle = dataset.augment if shuffle is None else shuffle
         self.drop_last = dataset.augment
         self.raw_images = dataset.augment and dataset.device_aug
+        self.masks = masks
+        self.mask_ratio = mask_ratio
+        self.overlap = overlap
         # quad batches (reference collate_fn4): every 4 samples -> one 2s x 2s image
         self.quad = bool(quad)
         if self.quad:
             if batch_size % 4:
                 raise ValueError("--quad needs batch_size divisible by 4")
-            if self.raw_images or rect:
-                raise ValueError("--quad is incompatible with the device mosaic and rect "
-                                 "batches")
+            if self.raw_images or rect or masks:
+                raise ValueError("--quad is incompatible with the device mosaic, rect "
+                                 "batches and segmentation masks")
         # the JAX package's rule (dataset.py:603): a training set never gets
         # rect batches
         self.rect = rect and not dataset.augment
@@ -600,13 +639,27 @@ class Loader:
         images = np.zeros((bs, s, s, 3), np.uint8)
         targets = np.zeros((bs, self.max_labels, 5), np.float32)
         valid = np.zeros((bs, self.max_labels), bool)
-        for b, (im, labels, _) in enumerate(samples):
+        hm = wm = s // self.mask_ratio
+        if self.masks:
+            gt_masks = (np.zeros((bs, hm, wm), np.int32) if self.overlap
+                        else np.zeros((bs, self.max_labels, hm, wm), np.uint8))
+        for b, (im, labels, segments) in enumerate(samples):
             images[b] = im[..., ::-1]  # BGR -> RGB
             n = min(len(labels), self.max_labels)
             if n:
                 targets[b, :n] = labels[:n]
                 valid[b, :n] = True
-        return {"images": images, "targets": targets, "valid": valid}
+            if self.masks and segments:
+                m = rasterize_masks(segments[:self.max_labels], labels, hm, wm, s,
+                                    overlap=self.overlap)
+                if self.overlap:
+                    gt_masks[b] = m
+                else:
+                    gt_masks[b, :m.shape[0]] = m
+        batch = {"images": images, "targets": targets, "valid": valid}
+        if self.masks:
+            batch["masks"] = gt_masks
+        return batch
 
     def _quad_collate(self, samples, rng):
         """Quad batches (reference collate_fn4, utils/dataloaders.py:865-891):
@@ -754,7 +807,8 @@ class Loader:
 
 def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=128,
                   workers=8, seed=0, single_cls=False, cache=None, device_aug=False,
-                  rect=False, stride=32, pad=0.5, hyp=None, shuffle=None, quad=False):
+                  rect=False, stride=32, pad=0.5, hyp=None, shuffle=None, quad=False,
+                  masks=False, mask_ratio=4, overlap=True):
     """Dataset + loader in one call (reference create_dataloader,
     utils/dataloaders.py:106-164). Validation (augment False) sees every
     image once and pads the final batch; training (augment True) shuffles
@@ -765,7 +819,8 @@ def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=1
     ds = YOLODataset(path, img_size=img_size, single_cls=single_cls, cache=cache or None,
                      augment=augment, device_aug=device_aug, hyp=hyp)
     loader = Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
-                    rect=rect, stride=stride, pad=pad, seed=seed, shuffle=shuffle, quad=quad)
+                    rect=rect, stride=stride, pad=pad, seed=seed, shuffle=shuffle, quad=quad,
+                    masks=masks, mask_ratio=mask_ratio, overlap=overlap)
     if cache is None and augment:
         # the reference's check_cache_ram (dataloaders.py:614-631)
         copies = loader.workers if loader.use_processes else 1

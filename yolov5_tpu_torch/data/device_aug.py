@@ -1,5 +1,5 @@
 """Training augmentation on the device: mosaic, geometry, HSV and flips as
-tensor math on the batch (detection only).
+tensor math on the batch, for detection and for segmentation.
 
 The port of the detection half of ``yolov5_tpu/data/device_aug.py``, with
 the reference's semantics (utils/augmentations.py, dataloaders.py:798-855):
@@ -19,6 +19,14 @@ The JAX package also has a separable banded-matmul mosaic (``mosaic_fused``)
 that keeps a TPU off gathers; its own tests show it equals compose-then-warp,
 which is the form ported here.
 
+The segmentation side (``device_augment_seg``) carries each label's polygon
+(V vertices) through the same mosaic and flips, re-derives the boxes from
+the warped polygons (the reference's segment2box, clipped to the output as
+the JAX package does) and fills the GT masks at the end
+(``rasterize_batch_masks``: vertices floored, as the JAX package floors
+them; the host loader truncates). Its mosaic takes the separable geometry
+only (scale and translate), as the JAX package's does.
+
 Randomness comes from an explicit ``torch.Generator`` on the batch's device
 (``aug_generator``: seeded from (seed, step)); the deterministic cores
 (``hsv_jitter_lut``, ``affine_from_draws``, ``affine_sample``,
@@ -32,6 +40,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from yolov5_tpu_torch.ops.rasterize import rasterize, rasterize_overlap
 
 FILL = 114.0
 
@@ -345,26 +355,18 @@ def _apply_mosaic_prob(do, hw4, valid4, xc, yc, s):
     return hw4, valid4, xc, yc
 
 
-def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=None,
-                    out_size=None):
-    """On-device 4-tile mosaic of raw batches (the JAX package's
-    ``mosaic_in_batch``; reference dataloaders.py:798-855).
-
-    images (bs, s, s, 3) uint8, each image resized long side = s into the
-    top-left of its buffer; hw (bs, 2) content sizes; targets normalized to
-    the content. With ``pool`` (the device cache: images, hw, targets,
-    valid) and ``self_idx`` (this batch's indices into it), the three
-    partners are drawn from the whole dataset; without, from the batch.
-    Each image is a mosaic with probability hyp['mosaic']. The geometry
-    (degrees, translate, scale, shear, perspective) warps the 2s canvas to s,
-    or to ``out_size`` (``mosaic_warp``)."""
-    bs, s = images.shape[0], images.shape[1]
-    dev = images.device
+def _mosaic_draws(hw, targets, valid, gen, hyp, s, pool, self_idx):
+    """The draws of one batch's mosaic, in the order ``mosaic_in_batch``
+    takes them: the three partners of each image (from ``pool`` when given,
+    else from the batch), the centre, whether the image is a mosaic, and the
+    warp. Returns (idx (bs, 4), hw4, targets4, valid4, xc, yc, draws, M,
+    scale)."""
+    bs, dev = hw.shape[0], hw.device
     if pool is not None:
         n = pool["images"].shape[0]
         idx = torch.cat([self_idx.long()[:, None],
                          torch.randint(0, n, (bs, 3), generator=gen, device=dev)], 1)
-        images, hw, targets, valid = pool["images"], pool["hw"], pool["targets"], pool["valid"]
+        hw, targets, valid = pool["hw"], pool["targets"], pool["valid"]
     else:
         idx = torch.cat([torch.arange(bs, device=dev)[:, None],
                          torch.randint(0, bs, (bs, 3), generator=gen, device=dev)], 1)
@@ -379,7 +381,27 @@ def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=No
                         hyp.get("scale", 0.5), hyp.get("shear", 0.0),
                         hyp.get("perspective", 0.0), dev)
     M, scale = affine_from_draws(draws, 2 * s, 2 * s, s, s)
-    return mosaic_warp(images, targets4, valid4, idx, hw4, xc, yc, M, scale, out_size)
+    return idx, hw4, targets4, valid4, xc, yc, draws, M, scale
+
+
+def mosaic_in_batch(images, hw, targets, valid, gen, hyp, pool=None, self_idx=None,
+                    out_size=None):
+    """On-device 4-tile mosaic of raw batches (the JAX package's
+    ``mosaic_in_batch``; reference dataloaders.py:798-855).
+
+    images (bs, s, s, 3) uint8, each image resized long side = s into the
+    top-left of its buffer; hw (bs, 2) content sizes; targets normalized to
+    the content. With ``pool`` (the device cache: images, hw, targets,
+    valid) and ``self_idx`` (this batch's indices into it), the three
+    partners are drawn from the whole dataset; without, from the batch.
+    Each image is a mosaic with probability hyp['mosaic']. The geometry
+    (degrees, translate, scale, shear, perspective) warps the 2s canvas to s,
+    or to ``out_size`` (``mosaic_warp``)."""
+    s = images.shape[1]
+    idx, hw4, targets4, valid4, xc, yc, _, M, scale = _mosaic_draws(
+        hw, targets, valid, gen, hyp, s, pool, self_idx)
+    pool_images = images if pool is None else pool["images"]
+    return mosaic_warp(pool_images, targets4, valid4, idx, hw4, xc, yc, M, scale, out_size)
 
 
 def mosaic_device(tiles, tile_hw, targets4, valid4, gen, hyp, out_size=None):
@@ -417,3 +439,143 @@ def device_augment(batch, gen, hyp):
     if hyp.get("flipud", 0):
         images, targets = random_flip_ud(images, targets, gen, hyp["flipud"])
     return dict(batch, images=images, targets=targets, valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# segmentation: polygons ride the mosaic and the flips, masks filled last
+# ---------------------------------------------------------------------------
+
+def _segment_boxes(seg_px, ow, oh):
+    """Boxes of warped polygons (..., V, 2) in output pixels: the extent of
+    the vertices clipped to the output, which is the reference's segment2box
+    over its 1000 resampled points in the dense limit. Returns (xyxy (...,
+    4), any vertex inside (...)); a polygon with none inside gets a zero
+    box."""
+    x, y = seg_px[..., 0], seg_px[..., 1]
+    inside = (x >= 0) & (x <= ow) & (y >= 0) & (y <= oh)
+    xc, yc = x.clamp(0, ow), y.clamp(0, oh)
+    boxes = torch.stack([xc.amin(-1), yc.amin(-1), xc.amax(-1), yc.amax(-1)], -1)
+    any_in = inside.any(-1)
+    return torch.where(any_in[..., None], boxes, 0.0), any_in
+
+
+def _seg_mosaic_labels(seg4, hw4, targets4, valid4, xc, yc, r, t, s):
+    """The deterministic core of the segmentation mosaic's labels: each
+    tile's polygons (bs, 4, M, V, 2), normalised to their content, to canvas
+    pixels, through the separable warp X = r·x + (t - r·s) (t in pixels) to
+    the output, then boxes from the polygons, kept by the reference's
+    box_candidates for segments (> 2 px, area ratio against the pre-warp
+    box at the drawn scale > 0.01, aspect < 100) and by any vertex inside.
+    Returns (targets (bs, 4M, 5), segments (bs, 4M, V, 2) normalised to the
+    output, valid (bs, 4M))."""
+    A = r[:, None, None]
+    Bx = (t[:, 0] - r * s)[:, None, None]
+    By = (t[:, 1] - r * s)[:, None, None]
+    segs_out, labels, valids = [], [], []
+    for k in range(4):
+        h_k = hw4[:, k, 0][:, None, None]
+        w_k = hw4[:, k, 1][:, None, None]
+        ox, oy = _tile_origins(k, xc[:, None, None], yc[:, None, None], h_k, w_k)
+        sk = seg4[:, k]
+        X = A * (sk[..., 0] * w_k + ox) + Bx
+        Y = A * (sk[..., 1] * h_k + oy) + By
+        seg_px = torch.stack([X, Y], -1)
+        boxes, any_in = _segment_boxes(seg_px, s, s)
+        nw = boxes[..., 2] - boxes[..., 0]
+        nh = boxes[..., 3] - boxes[..., 1]
+        tk = targets4[:, k]
+        pre_w = tk[..., 3] * w_k[..., 0] * r[:, None]
+        pre_h = tk[..., 4] * h_k[..., 0] * r[:, None]
+        ar = torch.maximum(nw / (nh + 1e-16), nh / (nw + 1e-16))
+        keep = (nw > 2) & (nh > 2) & (nw * nh / (pre_w * pre_h + 1e-16) > 0.01) & (ar < 100)
+        labels.append(torch.stack([tk[..., 0], (boxes[..., 0] + boxes[..., 2]) / 2 / s,
+                                   (boxes[..., 1] + boxes[..., 3]) / 2 / s, nw / s, nh / s], -1))
+        segs_out.append(seg_px / s)
+        valids.append(valid4[:, k] & keep & any_in)
+    return torch.cat(labels, 1), torch.cat(segs_out, 1), torch.cat(valids, 1)
+
+
+def mosaic_in_batch_seg(images, hw, targets, segments, valid, gen, hyp, pool=None,
+                        self_idx=None, out_size=None):
+    """The segmentation mosaic of raw batches: the detection mosaic's draws
+    and image (``mosaic_in_batch``), and the labels re-derived from the
+    polygons (``_seg_mosaic_labels``). segments (bs, M, V, 2) are normalised
+    to each image's content (with ``pool``, the cache's ``segments``).
+    Only the separable geometry: degrees, shear or perspective raise.
+    Returns (images, targets (bs, 4M, 5), segments (bs, 4M, V, 2) normalised
+    to the output, valid (bs, 4M))."""
+    if any(hyp.get(k, 0) for k in ("degrees", "shear", "perspective")):
+        raise ValueError("the device segmentation mosaic takes the separable scale + "
+                         "translate geometry; rotation, shear and perspective need the "
+                         "host pipeline (drop --device-aug)")
+    s = images.shape[1]
+    idx, hw4, targets4, valid4, xc, yc, draws, M, scale = _mosaic_draws(
+        hw, targets, valid, gen, hyp, s, pool, self_idx)
+    pool_images = images if pool is None else pool["images"]
+    seg4 = (segments if pool is None else pool["segments"])[idx].float()
+    out, _, _ = mosaic_warp(pool_images, targets4, valid4, idx, hw4, xc, yc, M, scale,
+                            out_size)
+    labels, segs, valids = _seg_mosaic_labels(seg4, hw4, targets4, valid4, xc, yc,
+                                              draws["scale"], draws["translate"] * s, s)
+    return out, labels, segs, valids
+
+
+def random_flip_lr_seg(images, targets, segments, gen, p=0.5):
+    """Left-right flip with probability p per image, polygons too."""
+    do = torch.rand(images.shape[0], generator=gen, device=images.device) < p
+    images = torch.where(do[:, None, None, None], images.flip(2), images)
+    x = torch.where(do[:, None], 1.0 - targets[..., 1], targets[..., 1])
+    sx = torch.where(do[:, None, None], 1.0 - segments[..., 0], segments[..., 0])
+    return (images, torch.cat([targets[..., :1], x[..., None], targets[..., 2:]], -1),
+            torch.stack([sx, segments[..., 1]], -1))
+
+
+def random_flip_ud_seg(images, targets, segments, gen, p=0.0):
+    """Up-down flip with probability p per image, polygons too."""
+    do = torch.rand(images.shape[0], generator=gen, device=images.device) < p
+    images = torch.where(do[:, None, None, None], images.flip(1), images)
+    y = torch.where(do[:, None], 1.0 - targets[..., 2], targets[..., 2])
+    sy = torch.where(do[:, None, None], 1.0 - segments[..., 1], segments[..., 1])
+    return (images, torch.cat([targets[..., :2], y[..., None], targets[..., 3:]], -1),
+            torch.stack([segments[..., 0], sy], -1))
+
+
+def rasterize_batch_masks(segments, valid, hm, wm, overlap=True):
+    """(bs, M, V, 2) output-normalised polygons -> GT masks at (hm, wm):
+    (bs, hm, wm) int32 index maps with ``overlap`` (label row i as i + 1),
+    else (bs, M, hm, wm) bool. Vertices are floored in mask pixels, as the
+    JAX package floors them (device_aug.py:783): the host loader's int32
+    cast, which truncates, differs only for negative coordinates."""
+    v = segments.shape[2]
+    nv = torch.where(valid, v, 0)
+    poly = torch.floor(segments * torch.tensor([wm, hm], dtype=segments.dtype,
+                                               device=segments.device))
+    if overlap:
+        return rasterize_overlap(poly, nv, hm, wm)
+    return rasterize(poly, nv, hm, wm)
+
+
+def device_augment_seg(batch, gen, hyp, mask_shape, overlap=True, pool=None, self_idx=None,
+                       out_size=None):
+    """Segmentation's device augmentation: the mosaic (raw batches, when
+    hyp['mosaic'] > 0) -> HSV -> flips -> GT masks at ``mask_shape``.
+    batch: images, targets, segments, valid (+ hw for raw batches).
+    Returns {images, targets, valid, masks, segments}."""
+    images, targets = batch["images"], batch["targets"]
+    segments, valid = batch["segments"], batch["valid"]
+    if "hw" in batch and hyp.get("mosaic", 0) > 0:
+        images, targets, segments, valid = mosaic_in_batch_seg(
+            images, batch["hw"], targets, segments, valid, gen, hyp, pool=pool,
+            self_idx=self_idx, out_size=out_size)
+    if any(hyp.get(k, 0) for k in ("hsv_h", "hsv_s", "hsv_v")):
+        images = augment_hsv(images, gen, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                             hyp.get("hsv_v", 0.4))
+    if hyp.get("fliplr", 0):
+        images, targets, segments = random_flip_lr_seg(images, targets, segments, gen,
+                                                       hyp["fliplr"])
+    if hyp.get("flipud", 0):
+        images, targets, segments = random_flip_ud_seg(images, targets, segments, gen,
+                                                       hyp["flipud"])
+    masks = rasterize_batch_masks(segments, valid, *mask_shape, overlap=overlap)
+    return {"images": images, "targets": targets, "valid": valid, "masks": masks,
+            "segments": segments}

@@ -1,14 +1,16 @@
-"""COCO-protocol detection scoring (pycocotools COCOeval equivalent, bbox).
+"""COCO-protocol detection scoring (pycocotools COCOeval equivalent, bbox
+and segm).
 
-The bbox part of ``yolov5_tpu/eval/coco.py``, copied and tested equal to it:
-greedy per-(image, category) matching at 10 IoU thresholds, area-range and
-maxDet stratification, 101-point interpolated AP. It cross-checks the
-in-house ``ap_per_class`` (eval/metrics.py) on the JSON the evaluator
-writes. The segm mode waits for the port of segmentation.
+A copy of ``yolov5_tpu/eval/coco.py``, tested equal to it: greedy
+per-(image, category) matching at 10 IoU thresholds, area-range and maxDet
+stratification, 101-point interpolated AP. It cross-checks the in-house
+``ap_per_class`` (eval/metrics.py) on the JSON the evaluators write. In
+segm mode IoUs and areas come from the RLE masks (``eval/rle.py``).
 
-Detections: [{"image_id", "category_id", "bbox" [x, y, w, h], "score"}, ...]
+Detections: [{"image_id", "category_id", "bbox" [x, y, w, h], "score",
+              "segmentation" (segm: RLE)}, ...]
 Ground truth: [{"image_id", "category_id", "bbox" [x, y, w, h],
-                "iscrowd" (optional)}, ...]
+                "iscrowd" (optional), "segmentation", "area" (segm)}, ...]
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
+
+from yolov5_tpu_torch.eval.rle import polygons_to_rle, rle_area, rle_iou
 
 # COCO class-id remap: the 80 contiguous training ids -> the 91-id COCO
 # annotation space (reference coco80_to_coco91_class via ultralytics)
@@ -63,14 +67,13 @@ def _iou_xywh(dt, gt, iscrowd):
 class COCOEvalLite:
     """COCOeval equivalent. evaluate() -> accumulate() -> summarize().
 
-    iou_type: only 'bbox'; 'segm' raises until segmentation is ported.
+    iou_type: 'bbox' or 'segm' (mask IoU and mask area from RLE).
     """
 
     def __init__(self, gt, dt, iou_thrs=IOU_THRS, rec_thrs=REC_THRS,
                  max_dets=MAX_DETS, area_rng=None, iou_type="bbox"):
-        if iou_type != "bbox":
-            raise NotImplementedError(f"COCOEvalLite: iou_type {iou_type!r} is not "
-                                      "ported (segmentation comes in a later slice)")
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"COCOEvalLite: iou_type {iou_type!r} (bbox or segm)")
         self.iou_type = iou_type
         self.iou_thrs = np.asarray(iou_thrs)
         self.rec_thrs = np.asarray(rec_thrs)
@@ -102,9 +105,14 @@ class COCOEvalLite:
         T = len(self.iou_thrs)
         max_det = self.max_dets[-1]
 
+        segm = self.iou_type == "segm"
         g_crowd = np.array([bool(g.get("iscrowd")) for g in gts], bool)
-        g_boxes = np.array([g["bbox"] for g in gts], np.float64).reshape(-1, 4)
-        g_area = g_boxes[:, 2] * g_boxes[:, 3]
+        if segm:
+            g_area = np.array([float(g.get("area", rle_area(g["segmentation"])))
+                               for g in gts], np.float64)
+        else:
+            g_boxes = np.array([g["bbox"] for g in gts], np.float64).reshape(-1, 4)
+            g_area = g_boxes[:, 2] * g_boxes[:, 3]
         g_ign = g_crowd | (g_area < arng[0]) | (g_area > arng[1])
         # ignored gts sort last so real matches are preferred
         g_order = np.argsort(g_ign, kind="mergesort")
@@ -118,10 +126,15 @@ class COCOEvalLite:
         # in native gt order and re-index per area range
         cached = self._iou_cache.get((img_id, cat_id))
         if cached is None:
-            d_boxes = np.array(
-                [d["bbox"] for d in dts], np.float64).reshape(-1, 4)[d_order]
-            d_area = d_boxes[:, 2] * d_boxes[:, 3]
-            ious_nat = _iou_xywh(d_boxes, g_boxes, g_crowd_nat)
+            if segm:
+                d_rles = [dts[i]["segmentation"] for i in d_order]
+                d_area = np.array([rle_area(r) for r in d_rles], np.float64)
+                ious_nat = rle_iou(d_rles, [g["segmentation"] for g in gts], g_crowd_nat)
+            else:
+                d_boxes = np.array(
+                    [d["bbox"] for d in dts], np.float64).reshape(-1, 4)[d_order]
+                d_area = d_boxes[:, 2] * d_boxes[:, 3]
+                ious_nat = _iou_xywh(d_boxes, g_boxes, g_crowd_nat)
             cached = self._iou_cache[(img_id, cat_id)] = (ious_nat, d_area)
         ious_nat, d_area = cached
         ious = ious_nat[:, g_order]
@@ -257,6 +270,36 @@ def gt_from_dataset(ds, coco91=False):
                 "image_id": image_id,
                 "category_id": cid,
                 "bbox": [row[1] * w - bw / 2, row[2] * h - bh / 2, bw, bh],
+            })
+    return gts
+
+
+def gt_from_dataset_segm(ds, coco91=False):
+    """COCO segm ground truth from a segmentation dataset: each label's
+    polygon (``ds.segments``, normalised xy) filled at the native image size
+    and RLE-encoded, with its box and mask area (reference
+    segment/val.py:366-382). Labels without a polygon are left out."""
+    gts = []
+    shapes = ds.shapes
+    for i, (path, labels) in enumerate(zip(ds.im_files, ds.labels)):
+        stem = Path(path).stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        h, w = int(shapes[i][0]), int(shapes[i][1])
+        segs = ds.segments[i] if ds.segments is not None else [None] * len(labels)
+        for row, seg in zip(labels, segs):
+            cid = int(row[0])
+            if coco91 and cid < len(COCO80_TO_COCO91):
+                cid = COCO80_TO_COCO91[cid]
+            if seg is None or len(seg) < 3:
+                continue
+            rle = polygons_to_rle([np.asarray(seg) * [w, h]], h, w)
+            bw, bh = row[3] * w, row[4] * h
+            gts.append({
+                "image_id": image_id,
+                "category_id": cid,
+                "bbox": [row[1] * w - bw / 2, row[2] * h - bh / 2, bw, bh],
+                "segmentation": rle,
+                "area": rle_area(rle),
             })
     return gts
 

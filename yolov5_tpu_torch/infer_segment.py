@@ -27,16 +27,18 @@ from yolov5_tpu_torch.utils.general import increment_path
 
 
 class Segmenter:
-    """A BN-folded SegmentationModel on ``device`` in float32: uint8
-    (bs, s, s, 3) RGB in, decoded predictions (bs, N, 5 + nc + nm) and
-    prototypes (bs, hm, wm, nm) out. ``weights`` as ``infer.load_fused``
-    takes them: None (seeded random), a ``.ckpt`` of the JAX package, a
-    reference ``.pt``, or a state_dict."""
+    """A BN-folded SegmentationModel on ``device``, in float32 (or bfloat16
+    with ``half``): uint8 (bs, s, s, 3) RGB in, decoded predictions (bs, N,
+    5 + nc + nm) in float32 and prototypes (bs, hm, wm, nm) out. ``weights``
+    as ``infer.load_fused`` takes them: None (seeded random), a ``.ckpt`` of
+    the JAX package, a reference ``.pt``, or a state_dict."""
 
-    def __init__(self, weights=None, cfg="yolov5n-seg", device="cuda", seed=0):
+    def __init__(self, weights=None, cfg="yolov5n-seg", device="cuda", seed=0, half=False):
         self.device = resolve_device(device, "Segmenter")
+        self.dtype = torch.bfloat16 if half else torch.float32
         model, names = load_fused(weights, cfg, seed, SegmentationModel, "Segmenter")
-        self.model = model.to(self.device).to(memory_format=torch.channels_last).eval()
+        self.model = model.to(self.device, self.dtype).to(
+            memory_format=torch.channels_last).eval()
         self.names = names or model.names
         self.nc = model.nc
         self.stride = model.stride
@@ -47,7 +49,7 @@ class Segmenter:
     def forward(self, images_uint8):
         """(preds (bs, N, 5 + nc + nm) float32, proto (bs, hm, wm, nm))."""
         images = torch.as_tensor(images_uint8).to(self.device).contiguous()
-        x = images.permute(0, 3, 1, 2).float() / 255.0  # NHWC storage = channels_last
+        x = images.permute(0, 3, 1, 2).to(self.dtype) / 255.0  # NHWC storage = channels_last
         maps, proto = self.model(x)
         return decode(maps, self.anchors, self.stride, torch.float32, nc=self.nc), proto
 

@@ -1,11 +1,19 @@
-"""The detection loss, batched over the padded assignment lattice.
+"""The detection and segmentation losses, batched over the padded
+assignment lattice.
 
-The port of ``ComputeLoss`` and its helpers from ``yolov5_tpu/train/loss.py``
-(the reference's utils/loss.py:101-183):
+The port of ``ComputeLoss``, ``ComputeSegmentLoss`` and their helpers from
+``yolov5_tpu/train/loss.py`` (the reference's utils/loss.py:101-183 and
+utils/segment/loss.py):
 - box: mean(1 - CIoU) over assigned candidates;
 - obj: BCE of every cell's objectness logit against tobj, which holds the
   detached CIoU at assigned cells (gr = 1), per-level balance BALANCE;
 - cls: one-vs-all BCE with label smoothing, only when nc > 1;
+- seg (``ComputeSegmentLoss``): per assigned candidate, BCE of
+  coeff·proto against its GT instance mask, cropped to the GT box in mask
+  pixels and divided by the box's area, averaged over the candidates and
+  scaled by the box gain; at most ``seg_k`` candidates per level (the
+  active ones first, a stable sort of the 0/1 mask as ``lax.top_k``), the
+  rest counted in ``seg_overflow``;
 - the total is scaled by the batch size (the reference's ``loss * bs``).
 Every reduction is a masked mean over the fixed lattice of
 ``train.assigner``, so the loss has static shapes and no host sync.
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from yolov5_tpu_torch.ops.boxes import bbox_iou, smooth_bce
+from yolov5_tpu_torch.ops.masks import crop_mask
 from yolov5_tpu_torch.train.assigner import build_targets_level
 
 # per-level objectness balance (reference loss.py:119-121)
@@ -142,3 +151,81 @@ class ComputeLoss:
         lcls = lcls * hyp.get("cls", 0.5)
         total = (lbox + lobj + lcls) * bs * self.gain
         return total, {"box": lbox, "obj": lobj, "cls": lcls}
+
+
+class ComputeSegmentLoss(ComputeLoss):
+    """The detection loss plus the prototype-mask term (reference
+    utils/segment/loss.py:15-195). ``nm`` mask coefficients per anchor;
+    ``overlap``: the GT masks are (bs, hm, wm) index maps (label row i as
+    i + 1), else (bs, M, hm, wm) 0/1; ``seg_k``: the per-level capacity of
+    mask-loss candidates."""
+
+    def __init__(self, anchors_per_stride, nc, hyp, nm=32, overlap=True, seg_k=256, **kw):
+        super().__init__(anchors_per_stride, nc, hyp, **kw)
+        self.nm = nm
+        self.overlap = overlap
+        self.seg_k = seg_k
+
+    def __call__(self, raw, targets, valid, gt_masks=None):
+        """raw: (maps, proto (bs, hm, wm, nm)) of a SegmentationModel.
+        Returns (total, {"box", "obj", "cls", "seg", "seg_overflow"}), or the
+        detection loss alone without ``gt_masks``."""
+        raw_maps, proto = raw
+        total, comps = super().__call__(raw_maps, targets, valid)
+        if gt_masks is None:
+            return total, comps
+        hyp = self.hyp
+        proto = proto.float()
+        bs, hm, wm, nm = proto.shape
+        dev = proto.device
+        targets = targets.float()
+        lseg = torch.zeros((), device=dev)
+        denom = torch.zeros((), device=dev)
+        overflow = torch.zeros((), device=dev)  # candidates beyond seg_k
+        # GT boxes in mask pixels, xyxy (bs, M, 4)
+        xywh = targets[..., 1:5]
+        box_px = torch.cat([(xywh[..., 0:1] - xywh[..., 2:3] / 2) * wm,
+                            (xywh[..., 1:2] - xywh[..., 3:4] / 2) * hm,
+                            (xywh[..., 0:1] + xywh[..., 2:3] / 2) * wm,
+                            (xywh[..., 1:2] + xywh[..., 3:4] / 2) * hm], -1)
+
+        for i, pred in enumerate(raw_maps):
+            _, ny, nx, na, no = pred.shape
+            anchors = torch.tensor(self.anchors[i], dtype=torch.float32, device=dev)
+            asn = build_targets_level(targets, valid, anchors, ny, nx,
+                                      hyp.get("anchor_t", 4.0))
+            mask = asn["mask"].reshape(bs, -1).float()
+            lin = ((asn["gj"] * nx + asn["gi"]) * na + asn["a"]).reshape(bs, -1)
+            m = targets.shape[1]
+            tgt_row = torch.arange(m, device=dev)[None, :, None, None].expand(
+                asn["mask"].shape).reshape(bs, -1)  # label row of each candidate
+
+            # the active candidates first, cut to a fixed capacity K
+            k = min(self.seg_k, mask.shape[1])
+            overflow = overflow + (mask.sum(1) - k).clamp(min=0).sum()
+            mask, sel = torch.sort(mask, dim=1, descending=True, stable=True)
+            mask, sel = mask[:, :k], sel[:, :k]
+            lin, tgt_row = lin.gather(1, sel), tgt_row.gather(1, sel)
+            p = pred.reshape(bs, ny * nx * na, no).gather(
+                1, lin[..., None].expand(-1, -1, no)).float()
+            coeff = p[..., 5 + self.nc:]  # (bs, K, nm)
+
+            if self.overlap:
+                gmask = (gt_masks[:, None] == (tgt_row + 1)[:, :, None, None]).float()
+            else:
+                gmask = gt_masks.float().gather(
+                    1, tgt_row[:, :, None, None].expand(-1, -1, hm, wm))
+            pm = torch.einsum("bcn,bhwn->bchw", coeff, proto)
+            seg_bce = bce_with_logits(pm, gmask)  # (bs, K, hm, wm)
+
+            cand_box = box_px.gather(1, tgt_row[..., None].expand(-1, -1, 4))  # (bs, K, 4)
+            area = ((cand_box[..., 2] - cand_box[..., 0])
+                    * (cand_box[..., 3] - cand_box[..., 1])).clamp(min=1.0)
+            cropped = crop_mask(seg_bce.reshape(-1, hm, wm), cand_box.reshape(-1, 4))
+            per_cand = cropped.reshape(bs, k, hm, wm).sum((-1, -2)) / area
+            lseg = lseg + (per_cand * mask).sum()
+            denom = denom + mask.sum()
+
+        lseg = lseg / denom.clamp(min=1.0) * hyp.get("box", 0.05)
+        total = total + lseg * bs
+        return total, dict(comps, seg=lseg, seg_overflow=overflow)

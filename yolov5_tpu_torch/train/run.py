@@ -101,6 +101,36 @@ def find_resume_ckpt(resume, project="runs/train"):
     return p
 
 
+def resume_options(resume, project):
+    """--resume -> (the interrupted run's saved options with its hyp.yaml, or
+    None when it left no opt.yaml; its last.ckpt). The reference
+    (train.py:624-636) replaces opt wholesale from the run's directory."""
+    ckpt_path = find_resume_ckpt(resume, project)
+    run_dir = ckpt_path.parent
+    opt_file, hyp_file = run_dir / "opt.yaml", run_dir / "hyp.yaml"
+    if not opt_file.exists():
+        return None, ckpt_path
+    saved = yaml.safe_load(opt_file.read_text()) or {}
+    saved.pop("resume", None)
+    if hyp_file.exists():
+        saved["hyp"] = str(hyp_file)
+    print(f"resuming {run_dir}")
+    return saved, ckpt_path
+
+
+def load_initial_weights(model, weights):
+    """Initial weights into ``model``: a reference ``.pt``, or a ``.ckpt``
+    (its EMA weights when it has them)."""
+    if str(weights).endswith(".pt"):
+        sd = load_torch_state_dict(weights)
+    else:
+        payload, _ = load_checkpoint(weights)
+        sd = from_jax_variables(variables_from_checkpoint(payload, prefer_ema=True))
+    missed = load_weights(model, sd)
+    if missed:
+        print(f"weight import: {len(missed)} unmatched entries")
+
+
 class EarlyStopper:
     """Fitness-patience early stop (reference torch_utils.py:315-340)."""
 
@@ -143,21 +173,12 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
     if resume and _resume_ckpt is None:
         if str(resume).startswith(("comet://", "wandb-artifact://")):
             raise NotImplementedError(f"train.run: cloud resume {resume} is not ported")
-        # rehydrate the interrupted run's own opt.yaml/hyp.yaml (reference
-        # train.py:624-636 replaces opt wholesale from the run dir)
-        ckpt_path = find_resume_ckpt(resume, project)
-        run_dir = ckpt_path.parent
-        opt_file, hyp_file = run_dir / "opt.yaml", run_dir / "hyp.yaml"
-        if opt_file.exists():
-            saved = yaml.safe_load(opt_file.read_text()) or {}
-            saved.pop("resume", None)
-            if hyp_file.exists():
-                saved["hyp"] = str(hyp_file)
-            print(f"resuming {run_dir}")
-            return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(run_dir),
+        saved, ckpt_path = resume_options(resume, project)
+        if saved is not None:
+            return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(ckpt_path.parent),
                        callbacks=callbacks, device=device)
         _resume_ckpt = str(ckpt_path)
-        save_dir = save_dir or str(run_dir)
+        save_dir = save_dir or str(ckpt_path.parent)
     if upload_dataset:
         raise NotImplementedError("train.run: --upload-dataset (cloud loggers) is not ported")
     if sync_bn:
@@ -205,14 +226,7 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
     if data_dict.get("names"):
         model.names = {int(k): v for k, v in data_dict["names"].items()}
     if weights and not _resume_ckpt:
-        if str(weights).endswith(".pt"):
-            sd = load_torch_state_dict(weights)
-        else:
-            payload, _ = load_checkpoint(weights)
-            sd = from_jax_variables(variables_from_checkpoint(payload, prefer_ema=True))
-        missed = load_weights(model, sd)
-        if missed:
-            print(f"weight import: {len(missed)} unmatched entries")
+        load_initial_weights(model, weights)
     imgsz = check_img_size(imgsz, s=max(model.stride))
 
     # data: host-augmented batches, or raw batches for the device mosaic

@@ -19,7 +19,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from yolov5_tpu_torch.data.device_aug import aug_generator, device_augment, mosaic_in_batch
+from yolov5_tpu_torch.data.device_aug import (aug_generator, device_augment,
+                                              device_augment_seg, mosaic_in_batch)
 from yolov5_tpu_torch.train.optim import EMAState, Optimizer, ema_init, ema_update
 
 GEOMETRY_KEYS = ("degrees", "translate", "scale", "shear", "perspective")
@@ -66,7 +67,8 @@ def resize_batch(images, size):
     return x.to(images.dtype)
 
 
-def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, ms_size=None):
+def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, ms_size=None,
+                    has_masks=False, mask_shape=None, overlap=True):
     """The train step: ``step(state, batch, cache=None) -> (state, metrics)``.
 
     batch: {"images": (B, H, W, 3) uint8 or float in [0, 1], "targets"
@@ -80,7 +82,13 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
     multi-scale size of device augmentation; the mosaic warps its canvas
     straight to it, and a batch without one (none is raw) is resized after
     augmentation as ``jax.image.resize(..., "linear")`` does (antialiased
-    when it shrinks). The state is updated in place and returned."""
+    when it shrinks). The state is updated in place and returned.
+
+    ``has_masks``: a segmentation step. The model returns (maps, proto) and
+    the loss (``ComputeSegmentLoss``) takes ``batch["masks"]``; with device
+    augmentation the batch (or the cache) also holds ``segments`` and
+    ``device_augment_seg`` composes it and fills the masks at
+    ``mask_shape`` (index maps with ``overlap``)."""
     amp = dtype == torch.bfloat16
 
     def step(state: TrainState, batch, cache=None):
@@ -88,8 +96,14 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
         self_idx = None
         if cache is not None:
             self_idx = batch["idx"]
-            batch = {k: cache[k][self_idx] for k in ("images", "hw", "targets", "valid")}
-        if device_aug_hyp is not None:
+            batch = {k: cache[k][self_idx] for k in ("images", "hw", "targets", "valid",
+                                                     "segments") if k in cache}
+        if device_aug_hyp is not None and has_masks:
+            gen = aug_generator(seed, state.step, batch["images"].device)
+            batch = device_augment_seg(batch, gen, dict(device_aug_hyp), mask_shape,
+                                       overlap=overlap, pool=cache, self_idx=self_idx,
+                                       out_size=ms_size)
+        elif device_aug_hyp is not None:
             gen = aug_generator(seed, state.step, batch["images"].device)
             hyp = dict(device_aug_hyp)
             if "hw" in batch:  # raw batches: the mosaic composes and warps
@@ -108,7 +122,10 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
         model.train()
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
             maps = model(images.contiguous(memory_format=torch.channels_last))
-        total, comps = loss_fn(maps, batch["targets"], batch["valid"])
+        if has_masks:
+            total, comps = loss_fn(maps, batch["targets"], batch["valid"], batch["masks"])
+        else:
+            total, comps = loss_fn(maps, batch["targets"], batch["valid"])
         grads = torch.autograd.grad(total, state.opt.params)
         tick = state.opt.step(grads)
         # EMA ticks only on real optimizer updates (accumulation)
