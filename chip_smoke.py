@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
-training, the detect CLI's run, the HTTP service, segmentation predict, and
-segmentation training and validation.
+training, the detect CLI's run, the HTTP service, segmentation predict,
+segmentation training and validation, and classification.
 
     python3 chip_smoke.py
 
@@ -109,6 +109,22 @@ Phases, one line each:
      >= 0.99); K1 at b16 x 30 720 and K2 at the seg val stem beside their
      bounds and plain versions; the b16 step by CUDA events with device
      augmentation and on a host-augmented batch already on the card.
+ 18. classify (run last): an ImageFolder of 10 classes, 640 train and 320 val
+     BMPs of ImageNet-like shapes (256x256, 240x320, 320x240, 288x384);
+     ``classify train`` (``yolov5_tpu_torch.classify.main`` in this
+     process) for yolov5s-cls at 224 px, b64, f32, 3 epochs from the device
+     cache (device augmentation) and 1 with --no-device-aug: finite losses,
+     K2 launched 5 times an epoch (the BN-folded EMA validation) and K1
+     never; ``classify val`` on best.ckpt: 5 K2 launches and the best
+     epoch's top-1/top-5 exactly; in f32 without TF32, validate_classify
+     through K2 against its run through K2's plain version (logits within
+     1e-3 of each row's largest, >= 99% of top-1 predictions equal, top-1
+     and top-5 within 1/320); K2 at b64 x 224² f32 within atol 1e-5, rtol
+     1e-4 of its plain version, beside its bound, its plain version and
+     cuDNN's f32 conv + SiLU; ``classify predict`` on 32 val BMPs (one K2
+     launch each, top-5 equal to a direct call and to
+     hub.load(task="classify")); the b64 step by CUDA events, its profile
+     line and peak memory.
 Then one JSON line with each kernel's launches (in all, and per main-path
 call), error, times, bound and yardstick, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
@@ -166,6 +182,23 @@ SEG_WORKERS = min(8, os.cpu_count() or 1)
 # the share of segment val's detections (f32) that the run through both
 # plain versions must match within 1 px, as phase 8's
 SEG_MATCH_MIN = 0.99
+# phase 18: classification, yolov5s-cls at 224 px, b64, f32 (the JAX
+# package's defaults; the reference's classify/train.py --img 224), the 10
+# classes of yolov5_tpu/data/configs/ImageNet10.yaml, ImageNet-like sources
+CLS_IMGSZ = 224
+CLS_BATCH = 64
+CLS_CLASSES = 10
+CLS_TRAIN_PER_CLASS = 64
+CLS_VAL_PER_CLASS = 32
+CLS_SHAPES = ((256, 256), (240, 320), (320, 240), (288, 384))
+CLS_EPOCHS = 3
+CLS_PREDICT = 32
+# the share of top-1 predictions that the path through K2's plain version
+# must give as the path through K2 does
+CLS_MATCH_MIN = 0.99
+# class colours of the generated sets (tests/torch_port_helpers.py)
+CLASS_COLORS = ((200, 60, 40), (40, 180, 60), (50, 70, 220), (210, 200, 50), (160, 60, 200),
+                (40, 200, 200), (240, 130, 30), (120, 120, 120), (250, 250, 250), (20, 20, 20))
 
 
 def _import_port():
@@ -2046,6 +2079,331 @@ def phase_segment_times(dev, data, smi):
     print(rast_line)
 
 
+def write_class_folder(root, n_per_class, seed):
+    """CLS_CLASSES class folders of n_per_class 24-bit BMPs each under root,
+    of the (h, w) CLS_SHAPES in turn: noise around the class's colour with
+    one noisy rectangle of another (tests/torch_port_helpers.py
+    ``write_imagefolder``). Returns the number of images."""
+    from yolov5_tpu_torch.data.imageio import imwrite
+
+    rng = np.random.default_rng(seed)
+    k = 0
+    for c in range(CLS_CLASSES):
+        d = Path(root) / f"cls{c:02d}"
+        d.mkdir(parents=True)
+        base = np.array(CLASS_COLORS[c], np.int16)[::-1]  # BGR
+        for i in range(n_per_class):
+            h, w = CLS_SHAPES[k % len(CLS_SHAPES)]
+            im = (base + rng.integers(-60, 60, (h, w, 3))).clip(0, 255).astype(np.uint8)
+            y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+            y1, x1 = y0 + int(rng.integers(h // 8, h // 2)), x0 + int(rng.integers(w // 8, w // 2))
+            im[y0:y1, x0:x1] = rng.integers(0, 256, 3)
+            imwrite(d / f"{i:03d}.bmp", im)
+            k += 1
+    return k
+
+
+def phase_cls_data(root):
+    """Phase 18's ImageFolder: train/ and val/ of CLS_CLASSES classes.
+    Returns its root."""
+    t0 = time.perf_counter()
+    root = Path(root) / "cls"
+    n_train = write_class_folder(root / "train", CLS_TRAIN_PER_CLASS, seed=11)
+    n_val = write_class_folder(root / "val", CLS_VAL_PER_CLASS, seed=12)
+    mb = sum(f.stat().st_size for f in root.rglob("*.bmp")) / 1e6
+    print(f"cls data: {n_train} train and {n_val} val BMPs of {CLS_CLASSES} classes, (h, w) "
+          f"{CLS_SHAPES}, {mb:.0f} MB, in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def _cls_cli(argv):
+    """``python -m yolov5_tpu_torch.classify <argv>`` in this process, with
+    what it printed."""
+    from yolov5_tpu_torch.classify import main
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = main(argv)
+    return out, "".join(tee.text)
+
+
+def torch_tf32_default():
+    """PyTorch's defaults, which a user of the classify CLI runs with: cuDNN
+    convolutions in TF32, matrix products in full f32."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_classify_train(dev, data, root, smi):
+    """``classify train`` for yolov5s-cls 224 b64 f32: CLS_EPOCHS epochs from
+    the device cache, then one with --no-device-aug, each epoch validated by
+    the BN-folded EMA model (K2 once a val batch). Returns (launches, the
+    device-cache run's directory)."""
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    torch_tf32_default()
+    base = ["train", "--data", str(data), "--cfg", "yolov5s", "--imgsz", str(CLS_IMGSZ),
+            "--batch-size", str(CLS_BATCH), "--project", str(Path(root) / "runs"),
+            "--exist-ok", "--device", str(dev)]
+    val_batches = CLS_CLASSES * CLS_VAL_PER_CLASS // CLS_BATCH
+    launches = {"stem_conv": 0, "greedy_nms": 0}
+    runs = {}
+    for name, epochs, extra in (("cls_device", CLS_EPOCHS, []),
+                                ("cls_host", 1, ["--no-device-aug"])):
+        # the counted runs of the classification training path
+        stem_conv.launches = greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        out, text = _cls_cli(base + ["--name", name, "--epochs", str(epochs)] + extra)
+        wall = time.perf_counter() - t0
+        got = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+        if got != {"stem_conv": val_batches * epochs, "greedy_nms": 0}:
+            raise AssertionError(f"classify train {name}: launches {got}, expected "
+                                 f"{val_batches} K2 launches an epoch and no K1")
+        if (name == "cls_device") != ("device cache:" in text):
+            raise AssertionError(f"classify train {name}: device cache used: "
+                                 f"{'device cache:' in text}")
+        save_dir = Path(out["save_dir"])
+        rows = _csv_rows(save_dir)
+        losses = [float(r["train/loss"]) for r in rows]
+        if len(rows) != epochs or not np.isfinite(losses).all():
+            raise AssertionError(f"classify train {name}: {len(rows)} epochs, losses {losses}")
+        for f in ("last.ckpt", "best.ckpt"):
+            if not (save_dir / f).exists():
+                raise AssertionError(f"classify train {name}: {f} not written")
+        for k in launches:
+            launches[k] += got[k]
+        runs[name] = save_dir
+        print(f"classify train {name}: yolov5s-cls {CLS_IMGSZ}px f32 b{CLS_BATCH}, {epochs} "
+              f"epoch(s) x {CLS_CLASSES * CLS_TRAIN_PER_CLASS // CLS_BATCH} steps, {wall:.1f} s; "
+              f"train/loss {np.round(losses, 5).tolist()}, train img/s "
+              f"{[round(float(r['train/imgs_per_sec']), 2) for r in rows]} (results.csv, host "
+              f"clock over each epoch); EMA val top1 {[float(r['val/top1']) for r in rows]}, top5 "
+              f"{[float(r['val/top5']) for r in rows]}; K2 launches {got['stem_conv']} "
+              f"({val_batches} a validated epoch) | {smi}")
+    return launches, runs["cls_device"]
+
+
+@contextlib.contextmanager
+def captured_logits():
+    """Record the logits of every batch that run_classify scores."""
+    from yolov5_tpu_torch.train import run_classify
+
+    saved = run_classify.classify_logits
+    batches = []
+
+    def record(model, images):
+        batches.append(saved(model, images))
+        return batches[-1]
+
+    run_classify.classify_logits = record
+    try:
+        yield batches
+    finally:
+        run_classify.classify_logits = saved
+
+
+def phase_classify_val(dev, data, run_dir, smi):
+    """``classify val`` on best.ckpt (the counted run): K2 once a b64 batch,
+    top-1/top-5 equal to the best epoch's EMA validation. Then, in f32 with
+    TF32 off, validate_classify through K2 against its run through K2's
+    plain version; K2 at b64 x 224² f32 against its plain version at the
+    f32 tolerance and beside its bound, its plain version and cuDNN.
+    Returns the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.train.run_classify import (classify_logits, load_classifier,
+                                                     validate_classify)
+
+    torch_tf32_default()
+    best = run_dir / "best.ckpt"
+    best_epoch = json.loads(Path(str(best) + ".json").read_text())["epoch"]
+    row = _csv_rows(run_dir)[best_epoch]
+    n_val = CLS_CLASSES * CLS_VAL_PER_CLASS
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    out, _ = _cls_cli(["val", "--data", str(data), "--weights", str(best), "--batch-size",
+                       str(CLS_BATCH), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    if launches != {"stem_conv": -(-n_val // CLS_BATCH), "greedy_nms": 0}:
+        raise AssertionError(f"classify val: launches {launches}")
+    pairs = {k: (float(row[f"val/{k}"]), out[k]) for k in ("top1", "top5")}
+    if out["images"] != n_val or any(a != b for a, b in pairs.values()):
+        raise AssertionError(f"classify val on best.ckpt: {out['images']} images, "
+                             f"{pairs} (training-time, classify val)")
+    print(f"classify val on best.ckpt (epoch {best_epoch}): reproduces the EMA validation "
+          f"{pairs}, loss {out['loss']:.5f}; {wall:.2f} s for {n_val} images "
+          f"({1e3 * wall / n_val:.3f} ms/img host clock, BMP decode and center crop included); "
+          f"launches {launches} | {smi}")
+
+    # f32 without TF32: the path through K2 against the path through its
+    # plain version, on the same checkpoint and images
+    torch_tf32_off()
+    with uncounted():
+        with captured_logits() as a:
+            res_a = validate_classify(str(best), str(data), batch_size=CLS_BATCH, verbose=False,
+                                      device=dev)
+        with routed(stem=stem_conv_plain), captured_logits() as b:
+            res_b = validate_classify(str(best), str(data), batch_size=CLS_BATCH, verbose=False,
+                                      device=dev)
+    la, lb = torch.cat(a), torch.cat(b)
+    rel = ((la - lb).abs().max(1).values / lb.abs().max(1).values).max().item()
+    same_top1 = (la.argmax(1) == lb.argmax(1)).float().mean().item()
+    d1, d5 = abs(res_a["top1"] - res_b["top1"]), abs(res_a["top5"] - res_b["top5"])
+    print(f"classify val f32 (TF32 off), K2 against its plain version: logits within "
+          f"{rel:.3g} of each row's largest (limit 1e-3), top-1 predictions equal in "
+          f"{100 * same_top1:.2f}% (limit {100 * CLS_MATCH_MIN:.0f}%), top1 {res_a['top1']:.5f} / "
+          f"{res_b['top1']:.5f}, top5 {res_a['top5']:.5f} / {res_b['top5']:.5f} (limit "
+          f"1/{n_val}) | {smi}")
+    if rel > 1e-3 or same_top1 < CLS_MATCH_MIN or max(d1, d5) > 1 / n_val + 1e-12:
+        raise AssertionError(f"classify val, K2 against its plain version: rel {rel}, "
+                             f"top-1 equal {same_top1}, top1/top5 differ by {d1}, {d5}")
+
+    # K2 at the path's shape: the f32 tolerance on phase 3's inputs, and the
+    # error on the path's own input (normalized images, EMA weights folded)
+    model, _, _ = load_classifier(str(best), device=dev)
+    images = torch.from_numpy(np.stack([im for im, _ in (
+        _cls_val_ds(data).load(i) for i in range(CLS_BATCH))])).to(dev)
+    captured = {}
+
+    def capture_stem(x, w, bias):
+        captured.update(stem=(x, w, bias))
+        return stem_conv(x, w, bias)
+
+    with uncounted():
+        with routed(stem=capture_stem):
+            classify_logits(model, images)
+        x, w, bias = captured["stem"]
+        path_err = (stem_conv(x, w, bias) - stem_conv_plain(x, w, bias)).abs().max().item()
+        gen = torch.Generator(device=dev).manual_seed(18)
+        xr = torch.rand(x.shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        wr = (torch.rand(w.shape, generator=gen, device=dev) - 0.5) * 0.4
+        br = torch.rand(bias.shape, generator=gen, device=dev) - 0.5
+        got, ref = stem_conv(xr, wr, br), stem_conv_plain(xr, wr, br)
+        err = (got - ref).abs()
+        bad = int((err > 1e-5 + 1e-4 * ref.abs()).sum())
+        if bad:
+            raise AssertionError(f"K2 b{CLS_BATCH}x{CLS_IMGSZ} f32: {bad} elements out of "
+                                 f"tolerance, max err {err.max().item()}")
+        torch_tf32_default()
+        k2 = cuda_ms(lambda: stem_conv(x, w, bias), iters=50)
+        k2_alone = cuda_ms(stem_kernel_call(x, w, bias), iters=50)
+        k2_plain = cuda_ms(lambda: stem_conv_plain(x, w, bias), iters=50)
+        k2_cudnn = cuda_ms(lambda: F.silu(F.conv2d(x, w, bias, stride=2, padding=2)), iters=50)
+        fwd = cuda_ms(lambda: classify_logits(model, images), iters=10)
+        k2_bound, k2_by = stem_bound_ms(x, w.shape[0])
+    print(f"K2 b{CLS_BATCH}x{CLS_IMGSZ} f32 c2={w.shape[0]} (yolov5s-cls stem, BN-folded EMA "
+          f"model): {k2:.4f} ms through its wrapper, {k2_alone:.4f} ms the kernel alone; bound "
+          f"{k2_bound:.4f} ms ({k2_by}), {100 * k2_bound / k2:.1f}% of it "
+          f"({100 * k2_bound / k2_alone:.1f}% alone); plain {k2_plain:.3f} ms; cuDNN f32 conv + "
+          f"SiLU (TF32, PyTorch's default) {k2_cudnn:.3f} ms; max abs err against the plain "
+          f"version {err.max().item():.3g} on uniform inputs (atol 1e-5, rtol 1e-4), "
+          f"{path_err:.3g} on the path's normalized input; the b{CLS_BATCH} forward "
+          f"{fwd:.3f} ms ({fwd / CLS_BATCH:.4f} ms/img, CUDA events) | {smi}")
+    return launches, {"ms": k2, "alone_ms": k2_alone, "plain_ms": k2_plain,
+                      "bound_ms": k2_bound, "library_ms": k2_cudnn}
+
+
+def _cls_val_ds(data):
+    from yolov5_tpu_torch.data.classify import ImageFolder
+
+    return ImageFolder(Path(data) / "val", CLS_IMGSZ)
+
+
+def phase_classify_predict(dev, data, run_dir, root, smi):
+    """``classify predict`` on CLS_PREDICT val BMPs (letterboxed to 224, b1,
+    K2 once an image): each image's top-5 equal to a direct call on the
+    same letterboxed input; hub.load(task="classify") on best.ckpt gives
+    the same logits. Returns the launches."""
+    import torch
+
+    from yolov5_tpu_torch import hub
+    from yolov5_tpu_torch.data.sources import LoadImages
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+    from yolov5_tpu_torch.train.run_classify import classify_logits, load_classifier
+
+    torch_tf32_default()
+    src = Path(root) / "cls_predict"
+    src.mkdir()
+    files = [f for c in sorted((Path(data) / "val").iterdir()) for f in sorted(c.iterdir())]
+    for f in files[::len(files) // CLS_PREDICT][:CLS_PREDICT]:
+        (src / f"{f.parent.name}_{f.name}").symlink_to(f)
+    best = str(run_dir / "best.ckpt")
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    out, _ = _cls_cli(["predict", "--weights", best, "--source", str(src), "--imgsz",
+                       str(CLS_IMGSZ), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    if launches != {"stem_conv": CLS_PREDICT, "greedy_nms": 0} or len(out) != CLS_PREDICT:
+        raise AssertionError(f"classify predict: {len(out)} images, launches {launches}")
+    with uncounted():
+        model, names, _ = load_classifier(best, device=dev)
+        cls = hub.load(best, task="classify", device=dev)
+        hits = 0
+        for (path, top), (p2, im, _, _) in zip(out, LoadImages(str(src), img_size=CLS_IMGSZ)):
+            x = torch.from_numpy(im[None]).to(dev)
+            logits = classify_logits(model, x)
+            prob = torch.softmax(logits.double(), 1)[0]
+            ref = [names[int(i)] for i in torch.argsort(-prob, stable=True)[:5]]
+            if path != p2 or [c for c, _ in top] != ref or not torch.equal(
+                    classify_logits(cls, x), logits):
+                raise AssertionError(f"classify predict {path}: {top} against {ref}")
+            if not all(0.0 <= p <= 1.0 for _, p in top):
+                raise AssertionError(f"classify predict {path}: probabilities {top}")
+            hits += top[0][0] == Path(path).name.split("_")[0]
+    print(f"classify predict: {CLS_PREDICT} val BMPs letterboxed to {CLS_IMGSZ}, b1, top-5 "
+          f"equal to a direct call and to hub.load(task='classify'); top-1 the image's class "
+          f"in {hits}/{CLS_PREDICT}; {1e3 * wall / CLS_PREDICT:.3f} ms/img (host clock, model "
+          f"load included); launches {launches} | {smi}")
+    return launches
+
+
+def phase_classify_times(dev, smi):
+    """The yolov5s-cls b64 224 f32 train step from the device cache (device
+    augmentation inside) by CUDA events, its profile line and peak memory."""
+    import torch
+
+    from yolov5_tpu_torch.models.yolo import ClassificationModel
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.run_classify import make_classify_step
+    from yolov5_tpu_torch.train.trainer import init_train_state
+
+    torch_tf32_default()
+    n = CLS_CLASSES * CLS_TRAIN_PER_CLASS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cache = {"images": torch.randint(0, 256, (n, CLS_IMGSZ, CLS_IMGSZ, 3), generator=gen,
+                                     device=dev, dtype=torch.uint8),
+             "labels": torch.randint(0, CLS_CLASSES, (n,), generator=gen, device=dev)}
+    model = ClassificationModel("yolov5s", nc=CLS_CLASSES).to(dev).to(
+        memory_format=torch.channels_last)
+    hyp = {"lr0": 0.001, "lrf": 0.01, "momentum": 0.9, "weight_decay": 5e-5,
+           "warmup_epochs": 0.0, "warmup_bias_lr": 0.0, "warmup_momentum": 0.9}
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), hyp, CLS_EPOCHS,
+                                              n // CLS_BATCH, 64, name="adam", cos_lr=True))
+    step = make_classify_step(0.1, seed=0, device_aug=True)
+    idx = {"idx": torch.arange(CLS_BATCH, device=dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_step = cuda_ms(lambda: step(state, idx, cache), iters=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    line = profile_line(lambda: step(state, idx, cache),
+                        f"classify train step b{CLS_BATCH} {CLS_IMGSZ}px f32 from the device cache",
+                        smi)
+    print(f"classify train step, yolov5s-cls b{CLS_BATCH} {CLS_IMGSZ}px f32 (device augmentation "
+          f"from the device cache, forward, backward, Adam, EMA; CUDA events over 10 warm "
+          f"steps): {t_step:.3f} ms ({CLS_BATCH / t_step * 1e3:.1f} img/s); peak memory "
+          f"{peak:.2f} GiB | {smi}")
+    print(line)
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -2110,10 +2468,16 @@ def main():
         seg_train_launches, seg_run = phase_segment_train(dev, seg_data, root, smi)
         seg_val_launches = phase_segment_val(dev, seg_data, seg_run, smi)
         phase_segment_times(dev, seg_data, smi)
+        cls_data = phase_cls_data(root)
+        cls_train_launches, cls_run = phase_classify_train(dev, cls_data, root, smi)
+        cls_val_launches, _ = phase_classify_val(dev, cls_data, cls_run, smi)
+        cls_predict_launches = phase_classify_predict(dev, cls_data, cls_run, root, smi)
+        phase_classify_times(dev, smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
-                + seg_train_launches[k] + seg_val_launches[k]
+                + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
+                + cls_val_launches[k] + cls_predict_launches[k]
                 for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",

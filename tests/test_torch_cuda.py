@@ -610,3 +610,62 @@ def test_segment_train_and_val_on_the_card(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(nms_mod, "greedy_nms", greedy_nms_plain)
     b = evaluate_segment(seg.forward, loader, dev, seg.nc)
     assert {k: a[k] for k in ("box", "mask")} == {k: b[k] for k in ("box", "mask")}
+
+
+@pytest.mark.parametrize("shape", [(64, 224, 224), (1, 224, 192), (1, 160, 224)])
+def test_stem_kernel_at_the_classify_shapes(dev, shape):
+    """yolov5s-cls's stem (c2 = 32) in f32: b64 at 224² (classify val and
+    the EMA validation) and b1 at letterboxed shapes, within the f32
+    tolerance (atol 1e-5, rtol 1e-4)."""
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    x = torch.rand((shape[0], 3, *shape[1:]), generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.rand((32, 3, 6, 6), generator=gen, device=dev) - 0.5) * 0.4
+    b = torch.rand((32,), generator=gen, device=dev) - 0.5
+    n = stem_conv.launches
+    got = stem_conv(x, w, b)
+    assert stem_conv.launches == n + 1
+    torch.testing.assert_close(got, stem_conv_plain(x, w, b), atol=1e-5, rtol=1e-4)
+
+
+def test_validate_classify_through_k2(dev, tmp_path, monkeypatch):
+    """validate_classify of a yolov5s classifier (BN folded, f32, 224 px)
+    on a few BMPs: its stem runs K2 once a batch, and against the run
+    through K2's plain version the logits agree within 1e-3 of each row's
+    largest and the metrics are equal."""
+    import yolov5_tpu_torch.models.layers as layers_mod
+    from yolov5_tpu_torch.train import run_classify
+    from yolov5_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state
+    from yolov5_tpu_torch.models.yolo import ClassificationModel
+
+    rng = np.random.default_rng(0)
+    for c in range(3):
+        (tmp_path / "val" / f"c{c}").mkdir(parents=True)
+        for i in range(4):
+            im = rng.integers(0, 256, (256, 288, 3)).astype(np.uint8)
+            im[..., c] = 230
+            imwrite(tmp_path / "val" / f"c{c}" / f"{i}.bmp", im)
+    model = ClassificationModel("yolov5s", nc=3).to(dev)
+    model.names = {0: "c0", 1: "c1", 2: "c2"}
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), {}, 1, 1, 64))
+    ckpt = tmp_path / "best.ckpt"
+    save_checkpoint(ckpt, state, 0, 0.0, extra={"imgsz": 224})
+    logits = []
+    saved = run_classify.classify_logits
+
+    def capture(m, images):
+        logits.append(saved(m, images))
+        return logits[-1]
+
+    monkeypatch.setattr(run_classify, "classify_logits", capture)
+    n = stem_conv.launches
+    a = run_classify.validate_classify(str(ckpt), str(tmp_path), batch_size=8, device=dev)
+    assert stem_conv.launches == n + 2
+    monkeypatch.setattr(layers_mod, "stem_conv", stem_conv_plain)
+    b = run_classify.validate_classify(str(ckpt), str(tmp_path), batch_size=8, device=dev)
+    for got, ref in zip(logits[:2], logits[2:]):
+        err = (got - ref).abs().max(1).values
+        assert (err <= 1e-3 * ref.abs().max(1).values).all(), err
+    assert (a["top1"], a["top5"], a["per_class"]) == (b["top1"], b["top5"], b["per_class"])

@@ -15,7 +15,7 @@ import yolov5_tpu_torch.results as results
 from tests.torch_port_helpers import assert_same_records, save_jax_checkpoint, yolov5n_cfg
 from yolov5_tpu_torch.data.imageio import imwrite
 from yolov5_tpu_torch.infer import Detector
-from yolov5_tpu_torch.models.yolo import SegmentationModel
+from yolov5_tpu_torch.models.yolo import ClassificationModel, SegmentationModel
 
 IMGSZ = 192  # above the from-maps NMS's 2048-candidate cap (ROADMAP, Open items 3)
 
@@ -87,8 +87,8 @@ def test_hub_load_detect_and_segment(case):
     with torch.no_grad():
         maps, proto = seg(x)
     assert maps[0].shape[-1] == 5 + 80 + 32 and proto.shape == (1, 16, 16, 32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        hub.load("yolov5s", task="classify", device="cpu")
+    cls = hub.load("yolov5n", task="classify", device="cpu")
+    assert isinstance(cls, ClassificationModel) and not cls.training and cls.nc == 1000
     with pytest.raises(ValueError, match="unknown task"):
         hub.load("yolov5s", task="pose", device="cpu")
 
@@ -96,6 +96,6 @@ def test_hub_load_detect_and_segment(case):
 def test_hub_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for kw in ({}, {"task": "segment"}):
+    for kw in ({}, {"task": "segment"}, {"task": "classify"}):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             hub.load("yolov5n-seg" if kw else "yolov5n", **kw)

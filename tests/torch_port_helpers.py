@@ -296,3 +296,41 @@ def write_polygon_dataset(root, shapes, nc=3, seed=0, split="val", ext=".bmp"):
         (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
     return {"path": str(root), "val": f"images/{split}", "nc": nc,
             "names": [f"c{j}" for j in range(nc)]}
+
+
+CLASS_COLORS = ((200, 60, 40), (40, 180, 60), (50, 70, 220), (210, 200, 50), (160, 60, 200),
+                (40, 200, 200), (240, 130, 30), (120, 120, 120), (250, 250, 250), (20, 20, 20))
+
+
+def write_imagefolder(root, classes, n_per_class, shapes, ext=".bmp", seed=0):
+    """An ImageFolder under ``root``: ``{class}/{i:03d}{ext}`` for each name
+    of ``classes``, ``n_per_class`` images each, of the (h, w) ``shapes`` in
+    turn: noise around the class's colour (``CLASS_COLORS``, so that a
+    classifier can learn the classes) with one noisy rectangle of another
+    colour. BMPs are written with numpy, other suffixes with cv2. Returns
+    the number of images. ``chip_smoke.py`` writes its sets the same way."""
+    from pathlib import Path
+
+    from yolov5_tpu_torch.data.imageio import imwrite
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    k = 0
+    for c, name in enumerate(classes):
+        (root / name).mkdir(parents=True, exist_ok=True)
+        base = np.array(CLASS_COLORS[c % len(CLASS_COLORS)], np.int16)[::-1]  # BGR
+        for i in range(n_per_class):
+            h, w = shapes[k % len(shapes)]
+            im = (base + rng.integers(-60, 60, (h, w, 3))).clip(0, 255).astype(np.uint8)
+            y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+            y1, x1 = y0 + int(rng.integers(h // 8, h // 2)), x0 + int(rng.integers(w // 8, w // 2))
+            im[y0:y1, x0:x1] = rng.integers(0, 256, 3)
+            path = root / name / f"{i:03d}{ext}"
+            if ext == ".bmp":
+                imwrite(path, im)
+            else:
+                import cv2
+
+                assert cv2.imwrite(str(path), im)
+            k += 1
+    return k

@@ -27,10 +27,15 @@ the JAX package does) and fills the GT masks at the end
 them; the host loader truncates). Its mosaic takes the separable geometry
 only (scale and translate), as the JAX package's does.
 
+The classification side (``classify_device_augment``) is RandomResizedCrop
+as an inverse-map bilinear sample of the cached (s, s) image, a horizontal
+flip and brightness, contrast and saturation jitter in that fixed order.
+
 Randomness comes from an explicit ``torch.Generator`` on the batch's device
 (``aug_generator``: seeded from (seed, step)); the deterministic cores
 (``hsv_jitter_lut``, ``affine_from_draws``, ``affine_sample``,
-``warp_perspective``, ``mosaic_warp``) take the drawn values as arguments.
+``warp_perspective``, ``mosaic_warp``, ``classify_augment_core``) take the
+drawn values as arguments.
 Images are (bs, h, w, 3) uint8 RGB, targets (bs, M, 5) [cls, x, y, w, h]
 normalized, valid (bs, M) bool.
 """
@@ -579,3 +584,60 @@ def device_augment_seg(batch, gen, hyp, mask_shape, overlap=True, pool=None, sel
     masks = rasterize_batch_masks(segments, valid, *mask_shape, overlap=overlap)
     return {"images": images, "targets": targets, "valid": valid, "masks": masks,
             "segments": segments}
+
+
+# ---------------------------------------------------------------------------
+# classification
+# ---------------------------------------------------------------------------
+
+def classify_aug_draws(gen, bs, device, scale=(0.08, 1.0), ratio=(0.75, 4.0 / 3.0), hflip=0.5,
+                       jitter=0.4):
+    """The random values of one classification batch, in the JAX package's
+    order: the crop's area fraction and log aspect ratio, its (x, y) offset
+    in [0, 1), the flip, and (with ``jitter``) the brightness, contrast and
+    saturation factors (3, bs) in 1 ± jitter."""
+    area = _uniform(gen, (bs,), scale[0], scale[1], device)
+    logr = _uniform(gen, (bs,), math.log(ratio[0]), math.log(ratio[1]), device)
+    off = torch.rand((bs, 2), generator=gen, device=device)
+    flip = torch.rand((bs,), generator=gen, device=device) < hflip
+    factors = _uniform(gen, (3, bs), 1.0 - jitter, 1.0 + jitter, device) if jitter else None
+    return {"area": area, "logr": logr, "off": off, "flip": flip, "jitter": factors}
+
+
+def classify_augment_core(images, area, logr, off, flip, jitter=None):
+    """The deterministic classification transform of (bs, s, s, 3) uint8 RGB
+    images on given draws (``classify_aug_draws``): RandomResizedCrop as the
+    inverse map in = off + out · scale with per-axis side scales
+    min(sqrt(area · r), 1) and min(sqrt(area / r), 1), sampled bilinearly
+    (``affine_sample``, fill 114); the flip of the width axis where ``flip``;
+    then out·b, (out - mean)·c + mean over each image, (out - gray)·t + gray
+    with gray = 0.299 R + 0.587 G + 0.114 B; clip(out + 0.5) to uint8."""
+    bs, s = images.shape[0], images.shape[1]
+    rho = torch.exp(logr)
+    sw = torch.sqrt(area * rho).clamp(max=1.0)
+    sh = torch.sqrt(area / rho).clamp(max=1.0)
+    zeros, ones = torch.zeros_like(sw), torch.ones_like(sw)
+    M = torch.stack([torch.stack([sw, zeros, off[:, 0] * (1 - sw) * s], -1),
+                     torch.stack([zeros, sh, off[:, 1] * (1 - sh) * s], -1),
+                     torch.stack([zeros, zeros, ones], -1)], 1)
+    out = affine_sample(images, M, s, s)
+    out = torch.where(flip[:, None, None, None], out.flip(2), out)
+    if jitter is not None:
+        jb, jc, js = (f[:, None, None, None] for f in jitter)
+        out = out * jb  # brightness
+        mean = out.mean((1, 2, 3), keepdim=True)
+        out = (out - mean) * jc + mean  # contrast
+        gray = (out * out.new_tensor([0.299, 0.587, 0.114])).sum(-1, keepdim=True)
+        out = (out - gray) * js + gray  # saturation
+    return _to_u8(out)
+
+
+def classify_device_augment(images, gen, scale=(0.08, 1.0), ratio=(0.75, 4.0 / 3.0), hflip=0.5,
+                            jitter=0.4):
+    """The classify train transform of the reference's recipe
+    (classify_albumentations: RandomResizedCrop, HorizontalFlip, ColorJitter
+    without hue) on a device-resident (bs, s, s, 3) uint8 batch, drawn from
+    ``gen``. Like the JAX package's, it crops the cached s x s image rather
+    than the file, and its jitters run in a fixed order."""
+    draws = classify_aug_draws(gen, images.shape[0], images.device, scale, ratio, hflip, jitter)
+    return classify_augment_core(images, **draws)

@@ -6,6 +6,8 @@ of ``yolov5_tpu/hub.py``.
     det = hub.load("path/to/best.ckpt")            # trained checkpoint
     det = hub.load("yolov5s.pt", cfg="yolov5s")    # torch reference weights
     seg = hub.load("yolov5s-seg", task="segment")  # SegmentationModel
+    cls = hub.load("yolov5s", task="classify")     # ClassificationModel
+    cls = hub.load("best.ckpt", task="classify")   # a classifier checkpoint
 
 No weight downloads happen here; point ``load`` at local files.
 ``list_models()`` enumerates the bundled config zoo. Everything runs on
@@ -24,8 +26,19 @@ def list_models():
 def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",
          device="cuda"):
     """A ready ``infer.Detector`` (BN folded), or for ``task="segment"`` an
-    eval-mode ``SegmentationModel`` on ``device``."""
+    eval-mode ``SegmentationModel`` on ``device``, or for ``task="classify"``
+    an eval-mode ``ClassificationModel``: seeded random weights for a config
+    name, BN folded from a ``.ckpt``/``.pt`` path. (The JAX package hands
+    every ``.ckpt``/``.pt`` path to its Detector, whatever the task.)"""
     s = str(name_or_path)
+    if task == "classify":
+        from yolov5_tpu_torch.infer import resolve_device
+        from yolov5_tpu_torch.models.yolo import ClassificationModel
+        from yolov5_tpu_torch.train.run_classify import load_classifier
+
+        if s.endswith((".ckpt", ".pt")):
+            return load_classifier(s, cfg=cfg or "yolov5s", device=device)[0]
+        return ClassificationModel(cfg or s).to(resolve_device(device, "hub.load")).eval()
     if task == "detect" or s.endswith((".ckpt", ".pt")):
         from yolov5_tpu_torch.infer import Detector
 
@@ -37,9 +50,6 @@ def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",
         from yolov5_tpu_torch.models.yolo import SegmentationModel
 
         return SegmentationModel(cfg or s).to(resolve_device(device, "hub.load")).eval()
-    if task == "classify":
-        raise NotImplementedError("hub.load(task='classify'): the Classify head is not ported "
-                                  "yet (ROADMAP Open items 1, item 8)")
     raise ValueError(f"unknown task {task}")
 
 

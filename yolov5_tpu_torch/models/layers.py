@@ -2,8 +2,9 @@
 
 The port of the canonical path of ``yolov5_tpu/models/layers.py``: Conv
 (plain with BN, or ``fused`` with BN folded into a conv bias), Bottleneck, C3,
-SPPF, Concat, Upsample (nearest), Detect, and the segmentation head (Proto,
-Segment), plus ``decode_level`` / ``decode``. Attribute names follow the reference's torch modules, so a
+SPPF, Concat, Upsample (nearest), Detect, the segmentation head (Proto,
+Segment) and the classification head (Classify), plus ``decode_level`` /
+``decode``. Attribute names follow the reference's torch modules, so a
 state_dict key reads ``model.{i}.cv1.conv.weight`` (OIHW).
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, whose
@@ -200,6 +201,22 @@ class Segment(Detect):
 
     def forward(self, xs):
         return super().forward(xs), self.proto(xs[0]).permute(0, 2, 3, 1)
+
+
+class Classify(nn.Module):
+    """Classification head (reference models/common.py:1120-1140): a Conv to
+    1280 channels, the global mean over H and W, dropout and ``linear`` to
+    ``c2`` logits. The JAX package's flax ``Dense`` named ``linear`` gives the
+    keys ``model.{i}.linear.weight`` (out, in) and ``.bias``."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, dropout_p=0.0, fused=False):
+        super().__init__()
+        self.conv = Conv(c1, 1280, k, s, p, g, fused=fused)
+        self.drop = nn.Dropout(dropout_p)
+        self.linear = nn.Linear(1280, c2)
+
+    def forward(self, x):
+        return self.linear(self.drop(self.conv(x).mean((2, 3))))
 
 
 def decode_level(y, anchors_px, stride, dtype=torch.float32, nc=None):

@@ -7,7 +7,9 @@ from; ``from_jax_variables`` is its inverse and ``to_jax_variables`` the
 inverse of that, so both packages can be fed the same weights and the
 checkpoint writer can write the JAX layout. A Segment head's keys
 (``model.24.m.0.weight``, ``model.24.proto.cv1.conv.weight``) map like any
-other, so the reference's segmentation ``.pt`` loads directly.
+other, so the reference's segmentation ``.pt`` loads directly. A Classify
+head's ``linear`` is a flax ``Dense``: its kernel is (in, out), the
+transpose of torch's (out, in) ``weight``.
 """
 
 from __future__ import annotations
@@ -180,7 +182,8 @@ def from_jax_variables(variables) -> dict:
     """The JAX package's variables ({"params": ..., "batch_stats": ...},
     fused or not) as a state_dict of f32 tensors in the reference torch
     layout: the inverse of ``torch_key_to_flax``, HWIO -> OIHW for conv
-    kernels, bn scale/bias/mean/var -> weight/bias/running_mean/running_var."""
+    kernels, (in, out) -> (out, in) for Dense kernels, bn
+    scale/bias/mean/var -> weight/bias/running_mean/running_var."""
     sd = {}
 
     def walk(coll, tree, path):
@@ -245,7 +248,8 @@ def torch_key_to_flax(key: str):
 def to_jax_variables(state_dict: dict) -> dict:
     """A state_dict in the reference torch layout as the JAX package's
     variables, {"params": ..., "batch_stats": ...} of nested dicts of f32
-    numpy arrays: the inverse of ``from_jax_variables`` (OIHW -> HWIO)."""
+    numpy arrays: the inverse of ``from_jax_variables`` (OIHW -> HWIO, and
+    (out, in) -> (in, out) for a Linear)."""
     out = {"params": {}, "batch_stats": {}}
     for k, v in state_dict.items():
         m = torch_key_to_flax(k)
@@ -256,6 +260,8 @@ def to_jax_variables(state_dict: dict) -> dict:
             v, np.float32)
         if path[-1] == "kernel" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "kernel" and a.ndim == 2:
+            a = a.T  # a Linear's (out, in) -> a Dense kernel's (in, out)
         node = out[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -7,7 +7,8 @@ path from ``yolov5_tpu/models/configs``. ``DetectionModel`` is an
 ``nn.Module`` that executes the parsed layer list with the reference's
 save-list, probes its strides with a real forward, and draws seeded
 torch-style initial weights; with a Segment head it returns ``(maps,
-proto)``, and ``SegmentationModel`` names that case.
+proto)``, and ``SegmentationModel`` names that case. ``ClassificationModel``
+runs the detection graph cut at ``cutoff`` with a Classify head appended.
 """
 
 from __future__ import annotations
@@ -234,18 +235,20 @@ def _build_module(spec: LayerSpec, c_in: list, fused: bool) -> nn.Module:
         return L.Detect(spec.args[0], spec.args[1], c_in)
     if spec.module == "Segment":
         return L.Segment(spec.args[0], spec.args[1], c_in, fused=fused, **dict(spec.kwargs))
+    if spec.module == "Classify":
+        return L.Classify(c_in[0], *spec.args, fused=fused, **dict(spec.kwargs))
     if spec.module not in _REGISTRY:
         raise NotImplementedError(f"layer {spec.i}: module {spec.module} is not ported")
     return _REGISTRY[spec.module](c_in[0], *spec.args, fused=fused, **dict(spec.kwargs))
 
 
 def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
-    """Seeded torch-style init: conv weights and biases U(±1/sqrt(fan_in))
-    (torch's kaiming_uniform(a=sqrt(5)) default); BN weight 1, bias 0,
-    running mean 0, var 1."""
+    """Seeded torch-style init: conv and linear weights and biases
+    U(±1/sqrt(fan_in)) (torch's kaiming_uniform(a=sqrt(5)) default); BN
+    weight 1, bias 0, running mean 0, var 1."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
                 m.weight.uniform_(-bound, bound, generator=gen)
                 if m.bias is not None:
@@ -271,10 +274,7 @@ class DetectionModel(nn.Module):
         self.nc = self.cfg["nc"]
         self.fused = fused
         self.specs, self.save, out_ch = parse_graph(self.cfg, ch)
-        chs = [ch, *out_ch]  # chs[j + 1] is layer j's output channels
-        self.model = nn.ModuleList(
-            _build_module(s, [chs[s.i if j == -1 else j + 1] for j in s.frm], fused)
-            for s in self.specs)
+        self.model = _build_graph(self.specs, [ch, *out_ch], fused)
         head = self.specs[-1]
         if head.module not in ("Detect", "Segment"):
             raise NotImplementedError(f"head {head.module} is not ported")
@@ -312,17 +312,30 @@ class DetectionModel(nn.Module):
 
     def forward(self, x):
         """x (bs, ch, H, W), channels_last -> raw maps [(bs, ny, nx, na, no)]."""
-        saved = {}
-        out = x
-        for spec, mod in zip(self.specs, self.model):
-            if len(spec.frm) == 1:
-                inp = out if spec.frm[0] == -1 else saved[spec.frm[0]]
-            else:
-                inp = [out if j == -1 else saved[j] for j in spec.frm]
-            out = mod(inp)
-            if spec.i in self.save:
-                saved[spec.i] = out
-        return out
+        return _run_graph(self, x)
+
+
+def _build_graph(specs, chs: list, fused: bool) -> nn.ModuleList:
+    """One module per spec; chs[j + 1] is layer j's output channels, chs[0]
+    the input's."""
+    return nn.ModuleList(
+        _build_module(s, [chs[s.i if j == -1 else j + 1] for j in s.frm], fused)
+        for s in specs)
+
+
+def _run_graph(model: nn.Module, x):
+    """Execute the layer list with the reference's save-list."""
+    saved = {}
+    out = x
+    for spec, mod in zip(model.specs, model.model):
+        if len(spec.frm) == 1:
+            inp = out if spec.frm[0] == -1 else saved[spec.frm[0]]
+        else:
+            inp = [out if j == -1 else saved[j] for j in spec.frm]
+        out = mod(inp)
+        if spec.i in model.save:
+            saved[spec.i] = out
+    return out
 
 
 class SegmentationModel(DetectionModel):
@@ -336,3 +349,37 @@ class SegmentationModel(DetectionModel):
             raise ValueError(f"SegmentationModel: {cfg} has a {self.specs[-1].module} head, "
                              "not Segment")
         self.nm = self.model[-1].nm
+
+
+class ClassificationModel(nn.Module):
+    """A classifier: the detection graph of ``cfg`` cut to its layers below
+    ``cutoff``, with a Classify head of ``nc`` logits appended at index
+    ``cutoff`` (the JAX package's ``ClassificationModel``, which keeps the
+    last backbone layer; the reference replaces it). x (bs, ch, H, W)
+    channels_last -> logits (bs, nc)."""
+
+    def __init__(self, cfg="yolov5s", nc=1000, cutoff=10, ch=3, fused=False, seed=0):
+        super().__init__()
+        self.cfg = cfg if isinstance(cfg, dict) else str(cfg)
+        self.nc, self.cutoff, self.fused = nc, cutoff, fused
+        specs, save, out_ch = parse_graph(load_config(cfg), ch)
+        self.specs = [s for s in specs if s.i < cutoff]
+        self.specs.append(LayerSpec(cutoff, (-1,), "Classify", (nc,), (), 1, nc))
+        self.save = tuple(s for s in save if s < cutoff)
+        self.model = _build_graph(self.specs, [ch, *out_ch[:cutoff]], fused)
+        _init_weights(self, torch.Generator().manual_seed(seed))
+        self.stride = (32,)
+        self.names = {i: f"class{i}" for i in range(nc)}
+
+    def forward(self, x):
+        return _run_graph(self, x)
+
+
+def build_model(cfg, task="detect", **kw):
+    if task == "detect":
+        return DetectionModel(cfg, **kw)
+    if task == "segment":
+        return SegmentationModel(cfg, **kw)
+    if task == "classify":
+        return ClassificationModel(cfg, **kw)
+    raise ValueError(f"unknown task {task!r}")

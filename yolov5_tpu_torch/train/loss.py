@@ -1,5 +1,5 @@
 """The detection and segmentation losses, batched over the padded
-assignment lattice.
+assignment lattice, and the classification loss.
 
 The port of ``ComputeLoss``, ``ComputeSegmentLoss`` and their helpers from
 ``yolov5_tpu/train/loss.py`` (the reference's utils/loss.py:101-183 and
@@ -14,7 +14,8 @@ utils/segment/loss.py):
   scaled by the box gain; at most ``seg_k`` candidates per level (the
   active ones first, a stable sort of the 0/1 mask as ``lax.top_k``), the
   rest counted in ``seg_overflow``;
-- the total is scaled by the batch size (the reference's ``loss * bs``).
+- the total is scaled by the batch size (the reference's ``loss * bs``);
+- ``classification_loss``: cross entropy with label smoothing, in float32.
 Every reduction is a masked mean over the fixed lattice of
 ``train.assigner``, so the loss has static shapes and no host sync.
 
@@ -229,3 +230,15 @@ class ComputeSegmentLoss(ComputeLoss):
         lseg = lseg / denom.clamp(min=1.0) * hyp.get("box", 0.05)
         total = total + lseg * bs
         return total, dict(comps, seg=lseg, seg_overflow=overflow)
+
+
+def classification_loss(logits, labels, label_smoothing=0.0):
+    """Mean cross entropy in float32 against labels smoothed to
+    (1 - α)·onehot + α/nc (optax ``smooth_labels``, as the JAX package's
+    classify step applies it; α = 0 is plain cross entropy)."""
+    logp = torch.log_softmax(logits.float(), -1)
+    nc = logits.shape[-1]
+    y = F.one_hot(labels.long(), nc).float()
+    if label_smoothing:
+        y = y * (1.0 - label_smoothing) + label_smoothing / nc
+    return -(y * logp).sum(-1).mean()

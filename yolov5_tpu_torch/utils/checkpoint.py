@@ -348,7 +348,8 @@ def save_checkpoint(path, state, epoch=-1, best_fitness=0.0, extra=None, include
         "names": {int(k): v for k, v in model.names.items()},
         "stride": list(model.stride),
         # the live anchors, not the cfg's: autoanchor may have evolved them
-        "anchors": anchors_to_yaml(model.anchors),
+        # (a classifier has none)
+        "anchors": anchors_to_yaml(getattr(model, "anchors", ())),
         "format": "yolov5_tpu-ckpt-v1",
     }
     if extra:
