@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
 training, the detect CLI's run, the HTTP service, segmentation predict,
-segmentation training and validation, and classification.
+segmentation training and validation, classification, and every config of
+the model zoo.
 
     python3 chip_smoke.py
 
@@ -109,7 +110,7 @@ Phases, one line each:
      >= 0.99); K1 at b16 x 30 720 and K2 at the seg val stem beside their
      bounds and plain versions; the b16 step by CUDA events with device
      augmentation and on a host-augmented batch already on the card.
- 18. classify (run last): an ImageFolder of 10 classes, 640 train and 320 val
+ 18. classify (run after 17): an ImageFolder of 10 classes, 640 train and 320 val
      BMPs of ImageNet-like shapes (256x256, 240x320, 320x240, 288x384);
      ``classify train`` (``yolov5_tpu_torch.classify.main`` in this
      process) for yolov5s-cls at 224 px, b64, f32, 3 epochs from the device
@@ -125,8 +126,30 @@ Phases, one line each:
      launch each, top-5 equal to a direct call and to
      hub.load(task="classify")); the b64 step by CUDA events, its profile
      line and peak memory.
+ 19. zoo (run last): (a) every bundled config (hub.list_models) at full
+     width with weights calibrated on 2 val BMPs (BN scales U(0.1, 0.4):
+     with U(0.5, 1.5) the deepest random models are chaotic, and K2's last
+     digits become other detections), BN folded, f32 without
+     TF32, forward + NMS at b2 and 640 px (1280 for yolov5{n,s,m,l,x}6),
+     conf 0.001, IoU 0.6, max_det 300: K1 launched for every config, K2
+     exactly where the YAML's stem is the 6x6/s2 SiLU Conv (not yolov3*, not
+     yolov5s-LeakyReLU); against the same batch through both plain versions
+     equal counts and >= 99% of the detections scoring over 1.01x their
+     image's cut matched within 1 px; (b) yolov5s-transformer,
+     yolov5s-ghost and yolov3 at full width, 3 train steps each at b16 640
+     bf16 autocast with device augmentation from the device cache: finite
+     losses, ms/step by CUDA events, peak memory; (c) ``train --cfg
+     yolov5s-transformer`` (1 epoch, b32, --device-aug --cache device, its
+     EMA validation), then ``val --half`` and ``detect --half`` on its
+     best.ckpt, K1 and K2 rising in each; (d) the b16 bf16 forward of
+     yolov3, yolov3-spp, yolov3-tiny, yolov5s-ghost, yolov5s-transformer
+     and yolov5s6 at 1280, a profile line of the ghost forward, K1 at the
+     2048 cap of yolov5-p2's (640 px) and yolov5s6's (1280 px) 102 000
+     candidates (masks equal to the plain version's), K2 at b8 x 1280² bf16
+     within one ulp of its plain version, each beside its bound, its plain
+     version and (K2) cuDNN's bf16 conv + SiLU; the phase's wall time.
 Then one JSON line with each kernel's launches (in all, and per main-path
-call), error, times, bound and yardstick, and last
+call), error, times, bound and yardstick (and under "zoo" phase 19's), and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -1331,25 +1354,26 @@ def phase_train_host_times(dev, data, smi):
         loader.close()
 
 
-def calibrated_weights(cfg, seed, images, dev):
+def calibrated_weights(cfg, seed, images, dev, gamma=(0.5, 1.5)):
     """Seeded random weights of ``cfg`` (a Detect or Segment head) whose BN
     running statistics are those of ``images`` (a uint8 (b, s, s, 3) RGB
     batch), so that every layer's output is normalised and the detections
-    depend on the image, with Detect biases around HEAD_BIAS. A state_dict
-    on the host."""
+    depend on the image, with BN scales U(``gamma``) and Detect biases
+    around HEAD_BIAS. A state_dict on the host."""
     import torch
 
     from yolov5_tpu_torch.models.yolo import DetectionModel, SegmentationModel
 
     model = (SegmentationModel if cfg.endswith("-seg") else DetectionModel)(cfg, seed=seed)
+    head = f"model.{len(model.specs) - 1}.m."
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for k, v in model.state_dict().items():
             if k.endswith("bn.weight"):
-                v.uniform_(0.5, 1.5, generator=gen)
+                v.uniform_(*gamma, generator=gen)
             elif k.endswith("bn.bias"):
                 v.normal_(0.0, 0.1, generator=gen)
-            elif k.startswith("model.24.m.") and k.endswith("bias"):
+            elif k.startswith(head) and k.endswith("bias"):
                 v.normal_(HEAD_BIAS, 0.5, generator=gen)
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -2404,6 +2428,334 @@ def phase_classify_times(dev, smi):
     print(line)
 
 
+# phase 19: the model zoo
+ZOO_BATCH = 2
+# BN scales of the zoo's calibrated weights. With U(0.5, 1.5) the deepest
+# random models are chaotic: yolov5x6 at 1280 turns a relative noise of 1e-7
+# on its plain stem's output (an f32 ulp) into raw maps 0.9% apart and other
+# detections; at U(0.1, 0.4) 1e-5 moves them 0.66% and K2's rounding 0.25%
+# (NVIDIA H100 80GB HBM3, 700 W)
+ZOO_GAMMA = (0.1, 0.4)
+ZOO_IMGSZ_P6 = 1280  # the yolov5{n,s,m,l,x}6 configs' own size
+ZOO_CONF, ZOO_IOU, ZOO_MAX_DET = 0.001, 0.6, 300  # the val defaults: max_det cuts every image
+ZOO_TRAIN = ("yolov5s-transformer", "yolov5s-ghost", "yolov3")
+ZOO_TRAIN_BATCH = 16
+ZOO_TRAIN_STEPS = 3
+ZOO_CLI = "yolov5s-transformer"
+ZOO_TIMED = ("yolov3", "yolov3-spp", "yolov3-tiny", "yolov5s-ghost", "yolov5s-transformer",
+             "yolov5s6")
+ZOO_TIME_BATCH = 16
+ZOO_STEM_BATCH = 8
+
+
+def zoo_configs():
+    """Every bundled model config (hub.list_models)."""
+    from yolov5_tpu_torch.hub import list_models
+
+    return list_models()
+
+
+def zoo_imgsz(name):
+    return ZOO_IMGSZ_P6 if re.fullmatch(r"yolov5[nsmlx]6", name) else IMGSZ
+
+
+def zoo_stem_expected(name):
+    """True where the config's stem is the 6x6/s2/p2 Conv with SiLU (no
+    global activation), the stem K2 computes once BN is folded: read from
+    the YAML, not from the model."""
+    from yolov5_tpu_torch.models.yolo import load_config
+
+    cfg = load_config(name)
+    f, n, m, args = cfg["backbone"][0]
+    return (m == "Conv" and list(args[1:4]) == [6, 2, 2]
+            and cfg.get("activation") in (None, "nn.SiLU()", "silu"))
+
+
+def _zoo_model(name, weights, dev, half=False):
+    """A BN-folded predictor of ``name`` on the card and its call: uint8
+    (b, s, s, 3) -> padded Detections (Detector.__call__, NMS from the raw
+    maps, for a Detect head; Segmenter.forward then non_max_suppression for
+    a Segment head)."""
+    from yolov5_tpu_torch.infer import Detector
+    from yolov5_tpu_torch.infer_segment import Segmenter
+    from yolov5_tpu_torch.ops.nms import non_max_suppression
+
+    kw = dict(conf_thres=ZOO_CONF, iou_thres=ZOO_IOU, max_det=ZOO_MAX_DET)
+    if name.endswith("-seg"):
+        seg = Segmenter(weights, cfg=name, device=dev, half=half)
+        return seg, lambda b: non_max_suppression(seg.forward(b)[0], nc=seg.nc, **kw)
+    det = Detector(weights, cfg=name, imgsz=zoo_imgsz(name), device=dev, half=half)
+    return det, lambda b: det(b, **kw)
+
+
+def _zoo_match(a, b, px=1.0):
+    """Per-image rows of two runs cut by max_det: whether the counts are
+    equal, and of a's detections scoring over 1.01x their image's lowest
+    kept score (near-ties at the cut may trade places), how many b has
+    within px (same class), of how many."""
+    same = [len(x) for x in a] == [len(x) for x in b]
+    hit = total = 0
+    for ra, rb in zip(a, b):
+        top = ra[ra[:, 4] > 1.01 * ra[:, 4].min()] if len(ra) else ra
+        h, t, _, _ = match_detections([top], [rb], px)
+        hit, total = hit + h, total + t
+    return same, hit, total
+
+
+def phase_zoo_detect(dev, root, smi):
+    """Every bundled config at full width, BN folded, calibrated weights
+    (BN scales U(ZOO_GAMMA)), f32 without TF32, forward + NMS at b2 (1280
+    px for the *6 configs): K1 every time, K2 exactly where the stem is
+    6x6/s2 SiLU, and the same batch through both plain versions."""
+    import torch
+
+    from yolov5_tpu_torch.data.imageio import imread
+    from yolov5_tpu_torch.data.letterbox import letterbox
+    from yolov5_tpu_torch.ops.nms import detections_to_numpy
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+
+    torch_tf32_off()
+    im0s = [imread(p) for p in sorted((Path(root) / "images" / "val").glob("*.bmp"))[:ZOO_BATCH]]
+    launches = {"stem_conv": 0, "greedy_nms": 0}
+    weights, lines, bad = {}, [], []
+    for name in zoo_configs():
+        s = zoo_imgsz(name)
+        batch = np.stack([letterbox(im, s)[0][..., ::-1] for im in im0s])
+        sd = calibrated_weights(name, 0, batch, dev, gamma=ZOO_GAMMA)
+        if name in ZOO_TIMED or name == "yolov5-p2":
+            weights[name] = sd  # phase_zoo_times runs these again
+        _, call = _zoo_model(name, sd, dev)
+        with uncounted():
+            call(batch)  # warm up: cuDNN picks its algorithms, K1/K2 load
+        stem_conv.launches = greedy_nms.launches = 0
+        dets = call(batch)
+        torch.cuda.synchronize()
+        got = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+        for k in launches:
+            launches[k] += got[k]
+        with routed(stem_conv_plain, greedy_nms_plain), uncounted():
+            twin = call(batch)
+        a, b = detections_to_numpy(dets), detections_to_numpy(twin)
+        same, hit, total = _zoo_match(a, b)
+        stem_ok = (got["stem_conv"] > 0) == zoo_stem_expected(name)
+        lines.append(f"{name} {s}px: {sum(map(len, a))} detections, launches (stem, nms) "
+                     f"({got['stem_conv']}, {got['greedy_nms']}); vs plain: counts "
+                     f"{'equal' if same else 'DIFFER'}, {hit}/{total} matched")
+        if got["greedy_nms"] < 1 or not stem_ok or not same or hit < 0.99 * total:
+            bad.append(lines[-1])
+    print(f"zoo detect: {len(lines)} configs at full width, BN folded, b{ZOO_BATCH} f32 (TF32 "
+          f"off), conf {ZOO_CONF} IoU {ZOO_IOU} max_det {ZOO_MAX_DET}; K2 expected where the "
+          f"stem is 6x6/s2 SiLU; against both plain versions: equal counts and >= 99% of the "
+          f"detections over 1.01x their image's cut within 1 px:\n  " + "\n  ".join(lines))
+    if bad:
+        raise AssertionError("zoo detect:\n  " + "\n  ".join(bad))
+    return weights, launches
+
+
+def phase_zoo_train(dev, data, smi):
+    """ZOO_TRAIN at full width: ZOO_TRAIN_STEPS train steps each at
+    b16@640, bf16 autocast, device augmentation from the device cache."""
+    import torch
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.data.device_cache import build_cache_arrays, to_device
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.general import check_dataset
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+
+    torch_tf32_default()
+    hyp = load_hyp("scratch-low")
+    ds, loader = create_loader(check_dataset(str(data))["train"], img_size=IMGSZ,
+                               batch_size=ZOO_TRAIN_BATCH, augment=True, device_aug=True)
+    cache = to_device(build_cache_arrays(ds, loader.max_labels), dev)
+    for name in ZOO_TRAIN:
+        model = DetectionModel(name, nc=VAL_CLASSES).to(dev).to(
+            memory_format=torch.channels_last)
+        scaled = scale_hyp(hyp, nl=len(model.stride), nc=VAL_CLASSES, imgsz=IMGSZ)
+        state = init_train_state(model, Optimizer(dict(model.named_parameters()), scaled, 1,
+                                                  len(loader), ZOO_TRAIN_BATCH))
+        step = make_train_step(ComputeLoss(model.anchors_per_stride, VAL_CLASSES, scaled), hyp,
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for i in range(ZOO_TRAIN_STEPS):
+            idx = torch.arange(i * ZOO_TRAIN_BATCH, (i + 1) * ZOO_TRAIN_BATCH, device=dev) % len(ds)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, {"idx": idx}, cache)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append([float(metrics[k]) for k in ("box", "obj", "cls", "total")])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"zoo train: {name} b{ZOO_TRAIN_BATCH} {IMGSZ}px bf16 autocast, device "
+              f"augmentation from the device cache, {ZOO_TRAIN_STEPS} steps: ms/step "
+              f"{[round(t, 3) for t in ms]} (the first with cuDNN's algorithm search; CUDA "
+              f"events); losses (box, obj, cls, total) {np.round(losses, 5).tolist()}; peak "
+              f"memory {peak:.2f} GiB | {smi}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"zoo train {name}: losses not finite {losses}")
+        del model, state, step
+
+
+def _cli(module, argv):
+    """``python -m <module> <argv>`` in this process; what it printed
+    (captured, not shown: the detect CLI prints a line an image)."""
+    import importlib
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        importlib.import_module(module).main(argv)
+    return out.getvalue()
+
+
+def phase_zoo_cli(dev, data, root, smi):
+    """``train --cfg yolov5s-transformer`` for one epoch ending in its EMA
+    validation, then ``val`` and ``detect`` on its best.ckpt: K1 and K2 rise
+    in each."""
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    project = Path(root) / "runs"
+    run_dir = project / "zoo_cli"
+    steps = [("train", "yolov5_tpu_torch.train.__main__",
+              ["--data", str(data), "--cfg", ZOO_CLI, "--epochs", "1", "--batch-size", str(BATCH),
+               "--imgsz", str(IMGSZ), "--device-aug", "--cache", "device", "--project",
+               str(project), "--name", "zoo_cli", "--exist-ok", "--device", str(dev)]),
+             ("val", "yolov5_tpu_torch.val",
+              ["--data", str(data), "--weights", str(run_dir / "best.ckpt"), "--imgsz",
+               str(IMGSZ), "--batch-size", str(BATCH), "--half", "--no-verbose", "--project",
+               str(project), "--name", "zoo_val", "--exist-ok", "--device", str(dev)]),
+             ("detect", "yolov5_tpu_torch.detect",
+              ["--weights", str(run_dir / "best.ckpt"), "--source",
+               str(Path(root) / "images" / "val"), "--imgsz", str(IMGSZ), "--batch-size",
+               str(BATCH), "--half", "--nosave", "--save-txt", "--project", str(project),
+               "--name", "zoo_detect", "--exist-ok", "--device", str(dev)])]
+    launches = {"stem_conv": 0, "greedy_nms": 0}
+    parts = []
+    for what, module, argv in steps:
+        stem_conv.launches = greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        out = _cli(module, argv)
+        wall = time.perf_counter() - t0
+        got = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+        if min(got.values()) < 1:
+            raise AssertionError(f"zoo cli {what}: launches {got}")
+        for k in launches:
+            launches[k] += got[k]
+        last = out.strip().splitlines()[-1]
+        parts.append(f"{what} {wall:.1f} s, launches (stem, nms) ({got['stem_conv']}, "
+                     f"{got['greedy_nms']}): {last[:160]}")
+    rows = _csv_rows(run_dir)
+    losses = [float(rows[-1][f"train/{k}"]) for k in ("box", "obj", "cls", "total")]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"zoo cli: train losses {losses}")
+    print(f"zoo cli, {ZOO_CLI} {IMGSZ}px b{BATCH} bf16 (--device-aug --cache device):\n  "
+          + "\n  ".join(parts) + f" | {smi}")
+    return launches
+
+
+def phase_zoo_times(dev, weights, smi):
+    """The forward ms per b16 batch (bf16) of the new configs and yolov5s6
+    at 1280; K2 at b8 x 1280² bf16 and K1 at the 2048 cap of P2's and
+    yolov5s6's 102 000 candidates, beside their bounds, plain versions and
+    the library call; a profile line of the ghost forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_tpu_torch.ops.nms import non_max_suppression_from_maps
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+
+    torch_tf32_default()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    parts = []
+    k1 = {}
+    for name in (*ZOO_TIMED, "yolov5-p2"):
+        s = zoo_imgsz(name)
+        det, _ = _zoo_model(name, weights[name], dev, half=True)
+        images = torch.randint(0, 256, (ZOO_TIME_BATCH, s, s, 3), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        if name in ZOO_TIMED:
+            fwd = cuda_ms(lambda: det.forward_maps(images), iters=10)
+            parts.append(f"{name} {s}px {fwd:.3f} ms ({ZOO_TIME_BATCH / fwd * 1e3:.1f} img/s)")
+        if name == "yolov5s-ghost":
+            ghost = profile_line(lambda: det.forward_maps(images),
+                                 f"yolov5s-ghost forward b{ZOO_TIME_BATCH} {s}px bf16", smi)
+        if name in ("yolov5-p2", "yolov5s6"):
+            maps = det.forward_maps(images)
+            n_cand = sum(m.shape[1] * m.shape[2] * m.shape[3] for m in maps)
+            captured = {}
+
+            def capture(boxes, scores, thres, max_det):
+                captured.update(args=(boxes, scores, thres, max_det))
+                return greedy_nms(boxes, scores, thres, max_det)
+
+            with routed(nms=capture):
+                non_max_suppression_from_maps(maps, det.anchors, det.stride, conf_thres=0.01,
+                                              max_nms=2048, max_det=1000, nc=det.nc)
+            args = captured["args"]
+            with uncounted():
+                if not torch.equal(greedy_nms(*args), greedy_nms_plain(*args)):
+                    raise AssertionError(f"zoo times: K1 at {name}'s candidates differs from "
+                                         "its plain version")
+                t = cuda_ms(lambda: greedy_nms(*args), iters=20)
+                t_plain = cuda_ms(lambda: greedy_nms_plain(*args), iters=2, warmup=1)
+            bound, by, n_iou = nms_bound_ms(*args)
+            k1[name] = dict(ms=t, plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                            library_ms=None, candidates=n_cand, shape=list(args[1].shape))
+        if name == "yolov5s6":
+            stem = det.model.model[0]
+            w, b = stem.conv.weight, stem.conv.bias
+    print(f"zoo forward, b{ZOO_TIME_BATCH} bf16, BN folded (CUDA events): " + "; ".join(parts)
+          + f" | {smi}")
+    print(ghost)
+    for name, r in k1.items():
+        print(f"K1 at {name}'s {r['candidates']} candidates, cut to the 2048 cap ({r['shape']}), "
+              f"IoU 0.45 max_det 1000: {r['ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f}% of it; plain "
+              f"{r['plain_ms']:.3f} ms; no library call; masks equal the plain version's | {smi}")
+
+    # K2 at the P6 size: b8 x 1280², bf16, yolov5s6's folded stem
+    x = torch.rand((ZOO_STEM_BATCH, 3, ZOO_IMGSZ_P6, ZOO_IMGSZ_P6), generator=gen, device=dev)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    with uncounted():
+        torch_tf32_off()
+        err = (stem_conv(x, w, b).float() - stem_conv_plain(x, w, b).float()).abs()
+        ref = stem_conv_plain(x, w, b).float()
+        if (err > bf16_ulp(ref) + 1e-5).any():
+            raise AssertionError(f"zoo times: K2 at b{ZOO_STEM_BATCH}x{ZOO_IMGSZ_P6} bf16 off its "
+                                 f"plain version by {err.max().item()}")
+        torch_tf32_default()
+        k2 = cuda_ms(lambda: stem_conv(x, w, b), iters=20)
+        k2_plain = cuda_ms(lambda: stem_conv_plain(x, w, b), iters=20)
+        k2_cudnn = cuda_ms(lambda: F.silu(F.conv2d(x, w, b, stride=2, padding=2)), iters=20)
+    k2_bound, k2_by = stem_bound_ms(x, w.shape[0])
+    print(f"K2 b{ZOO_STEM_BATCH}x{ZOO_IMGSZ_P6}² bf16 c2={w.shape[0]} (yolov5s6's stem): "
+          f"{k2:.4f} ms; bound {k2_bound:.4f} ms ({k2_by}), {100 * k2_bound / k2:.1f}% of it; "
+          f"plain {k2_plain:.3f} ms; cuDNN bf16 conv + SiLU {k2_cudnn:.3f} ms; within one bf16 "
+          f"ulp of the plain version (max err {err.max().item():.3g}) | {smi}")
+    return {"greedy_nms": k1, "stem_conv": dict(ms=k2, plain_ms=k2_plain, bound_ms=k2_bound,
+                                                 bound_by=k2_by, library_ms=k2_cudnn)}
+
+
+def phase_zoo(dev, root, train_data, smi):
+    """Phase 19: the model zoo (a)-(d); its wall time."""
+    t0 = time.perf_counter()
+    weights, detect_launches = phase_zoo_detect(dev, root, smi)
+    phase_zoo_train(dev, train_data, smi)
+    cli_launches = phase_zoo_cli(dev, train_data, root, smi)
+    times = phase_zoo_times(dev, weights, smi)
+    print(f"zoo: phase 19 in {time.perf_counter() - t0:.1f} s")
+    return {k: detect_launches[k] + cli_launches[k] for k in detect_launches}, times
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -2473,23 +2825,24 @@ def main():
         cls_val_launches, _ = phase_classify_val(dev, cls_data, cls_run, smi)
         cls_predict_launches = phase_classify_predict(dev, cls_data, cls_run, root, smi)
         phase_classify_times(dev, smi)
+        zoo_launches, zoo_times = phase_zoo(dev, root, train_data, smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
-                + cls_val_launches[k] + cls_predict_launches[k]
+                + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
                 for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
          "launches_per_call": per_call["greedy_nms"], "max_abs_err": nms_err,
-         **times["greedy_nms"]},
+         **times["greedy_nms"], "zoo": zoo_times["greedy_nms"]},
         {"name": "stem_conv", "route": "cuda", "source": "yolov5_tpu_torch/csrc/stem_conv.cu",
          "replaces": "yolov5_tpu/ops/stem_pallas.py:180",
          "also_replaces": "yolov5_tpu/ops/stem_pallas.py:151 (K2b, the same function in the "
                           "MXU-transposed layout)", "launches": launches["stem_conv"],
          "launches_per_call": per_call["stem_conv"], "max_abs_err": stem_err,
-         **times["stem_conv"]},
+         **times["stem_conv"], "zoo": zoo_times["stem_conv"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -72,7 +72,9 @@ def test_results_accessors(case, tmp_path, capsys):
 
 
 def test_list_models_matches_jax():
-    assert hub.list_models() == jax_hub.list_models()
+    """The JAX package's list but anchors.yaml, a table of anchor presets
+    that no hub.load can build (ROADMAP §3)."""
+    assert hub.list_models() == [m for m in jax_hub.list_models() if m != "anchors"]
     assert {"yolov5s", "yolov5n-seg"} <= set(hub.list_models())
 
 

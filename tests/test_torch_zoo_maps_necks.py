@@ -1,0 +1,17 @@
+"""yolov5s-LeakyReLU and the P3-P5 neck variants (FPN, PANet, BiFPN) and
+P3-P4, port against the JAX package: raw maps of the unfused model, the
+BN-folded model and train mode on the same seeded variables, at width 0.125
+and depth 0.33 (64 px, b2). The checks and their tolerances are
+``torch_port_helpers.check_zoo_maps``'s."""
+
+import pytest
+
+from tests.torch_port_helpers import check_zoo_maps
+
+CONFIGS = ["yolov5s-LeakyReLU", "yolov5-fpn", "yolov5-panet", "yolov5-bifpn", "yolov5-p34"]
+
+
+@pytest.mark.parametrize("mode", ["eval", "fused", "train"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_zoo_raw_maps(name, mode):
+    check_zoo_maps(name, mode)

@@ -1,0 +1,16 @@
+"""The segmentation models (Segment head and Proto), port against the JAX
+package: raw maps of the unfused model, the BN-folded model and train mode
+on the same seeded variables, at width 0.125 and depth 0.33 (64 px, b2). The
+checks and their tolerances are ``torch_port_helpers.check_zoo_maps``'s."""
+
+import pytest
+
+from tests.torch_port_helpers import check_zoo_maps
+
+CONFIGS = ["yolov5n-seg", "yolov5s-seg", "yolov5m-seg", "yolov5l-seg", "yolov5x-seg"]
+
+
+@pytest.mark.parametrize("mode", ["eval", "fused", "train"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_zoo_raw_maps(name, mode):
+    check_zoo_maps(name, mode)

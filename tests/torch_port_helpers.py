@@ -334,3 +334,197 @@ def write_imagefolder(root, classes, n_per_class, shapes, ext=".bmp", seed=0):
                 assert cv2.imwrite(str(path), im)
             k += 1
     return k
+
+
+# ---------------------------------------------------------------------------
+# The model zoo (tests/test_torch_zoo_*.py)
+# ---------------------------------------------------------------------------
+
+def small_cfg(name, nc=3, width=0.125, depth=0.33):
+    """A bundled config (or a config dict) with ``nc`` classes at a reduced
+    width and depth."""
+    from yolov5_tpu_torch.models.yolo import load_config
+
+    return {**load_config(name), "nc": nc, "width_multiple": width, "depth_multiple": depth}
+
+
+def zoo_imgsz(cfg):
+    """The smallest square input the tests feed a config: 64 px, 128 px where
+    the strides reach 128 (P7)."""
+    anchors = cfg.get("anchors")
+    return 128 if isinstance(anchors, list) and len(anchors) > 4 else 64
+
+
+def random_jax_variables(variables, rng):
+    """New numpy leaves for the JAX package's ``variables`` tree: kernels
+    U(±1.5/sqrt(fan_in)), conv and Dense biases U(±0.2), BN scales
+    U(0.5, 1.5), BN biases N(0, 0.1), running means N(0, 0.2) and variances
+    U(0.5, 1.5), AconC's p1, p2 N(0, 1) and beta U(0.5, 1.5)."""
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v, path + [k])
+                continue
+            shape = np.shape(v)
+            bn = bool(path) and (path[-1] == "bn" or path[-1].endswith("_bn"))
+            if k == "kernel":
+                fan_in = int(np.prod(shape[:-1]))
+                a = rng.uniform(-1.5, 1.5, shape) / np.sqrt(fan_in)
+            elif k in ("scale", "var", "beta"):
+                a = rng.uniform(0.5, 1.5, shape)
+            elif k == "mean":
+                a = rng.normal(0.0, 0.2, shape)
+            elif k == "bias":
+                a = rng.normal(0.0, 0.1, shape) if bn else rng.uniform(-0.2, 0.2, shape)
+            else:  # p1, p2
+                a = rng.normal(0.0, 1.0, shape)
+            out[k] = a.astype(np.float32)
+        return out
+
+    return {coll: walk(tree, []) for coll, tree in variables.items()}
+
+
+def nchw(x):
+    """An NHWC numpy batch as an NCHW channels_last tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def assert_maps_close(got, ref, rel=1e-4, what="map"):
+    """Each tensor of got within rel of its reference's largest magnitude."""
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = to_numpy(g), np.asarray(r, np.float32)
+        assert g.shape == r.shape, (what, i, g.shape, r.shape)
+        assert np.isfinite(r).all(), (what, i)
+        np.testing.assert_allclose(g, r, rtol=0, atol=rel * np.abs(r).max(),
+                                   err_msg=f"{what} {i}")
+
+
+_ZOO_PAIRS = {}
+
+
+def zoo_pair(name, cfg=None):
+    """For the config ``name`` at the reduced size of ``small_cfg`` (or the
+    config dict ``cfg`` as it is, under that name): the JAX package's
+    DetectionModel, seeded random variables for it (``random_jax_variables``)
+    and a seeded input batch (2, s, s, 3) in [0, 1), s = ``zoo_imgsz``; kept
+    for the life of the process."""
+    if name not in _ZOO_PAIRS:
+        from yolov5_tpu.models import DetectionModel as JaxModel
+
+        cfg = cfg or small_cfg(name)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        jm = JaxModel(cfg, packed_stem=False)
+        s = zoo_imgsz(cfg)
+        _ZOO_PAIRS[name] = (cfg, jm, random_jax_variables(jm.variables, rng),
+                            rng.uniform(0, 1, (2, s, s, 3)))
+    return _ZOO_PAIRS[name]
+
+
+def _flat_maps(out):
+    """A model's output as a list of arrays: the raw maps, then a Segment
+    head's proto."""
+    return [*out[0], out[1]] if isinstance(out, tuple) else list(out)
+
+
+def check_zoo_maps(name, mode, cfg=None):
+    """The port's raw maps (and proto) against the JAX model's on the same
+    variables (through ``from_jax_variables``) and input, for ``mode``:
+
+      - "eval": unfused, running statistics; f32, within 1e-4 of each
+        tensor's largest value;
+      - "fused": the port's model with BN folded by its ``fuse_conv_bn``
+        against the JAX model *unfused*; f32, the same tolerance;
+      - "train": train-mode BN, the maps and the moved running statistics.
+        In float64 in both packages, within 1e-6: in f32 each package is
+        1e-4 .. 3e-4 of the largest value away from its float64 result at
+        these sizes (a 2x2 map of batch 2 normalised by its own statistics
+        through 20+ BNs), so an f32 comparison would measure rounding. The
+        attention softmax stays f32 in both, as written."""
+    import jax
+    import jax.numpy as jnp
+
+    from yolov5_tpu.models import DetectionModel as JaxModel
+    from yolov5_tpu_torch.models.weights import from_jax_variables, fuse_conv_bn
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+
+    cfg, jm, variables, x = zoo_pair(name, cfg)
+    sd = from_jax_variables(variables)
+    if mode == "train":
+        with jax.enable_x64(True):
+            j64 = JaxModel(cfg, packed_stem=False, dtype=jnp.float64)
+            v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), variables)
+            ref, upd = j64.apply(v64, jnp.asarray(x), train=True, mutable=["batch_stats"])
+            ref = [np.asarray(r) for r in _flat_maps(ref)]
+            moved = from_jax_variables({"batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                                              upd["batch_stats"])})
+        port = DetectionModel(cfg).double()
+        port.load_state_dict(sd)
+        got = _flat_maps(port.train()(nchw(x)))
+        assert_maps_close(got, ref, 1e-6, f"{name} train")
+        own = port.state_dict()
+        assert_maps_close([own[k] for k in moved], [moved[k].numpy() for k in moved], 1e-6,
+                          f"{name} running statistics")
+        return
+    if (name, "ref") not in _ZOO_PAIRS:
+        _ZOO_PAIRS[name, "ref"] = _flat_maps(jm.apply(variables, jnp.asarray(x, jnp.float32)))
+    ref = _ZOO_PAIRS[name, "ref"]
+    port = DetectionModel(cfg, fused=mode == "fused")
+    port.load_state_dict(fuse_conv_bn(sd) if mode == "fused" else sd)
+    with torch.no_grad():
+        got = _flat_maps(port.eval()(nchw(x.astype(np.float32))))
+    assert_maps_close(got, ref, 1e-4, f"{name} {mode}")
+
+
+def _jax_shapes(cfg, fused):
+    """{(collection, flax path): shape} of the JAX model of cfg, taken
+    abstractly (jax.eval_shape of the graph's init at 256 px)."""
+    import jax
+    import jax.numpy as jnp
+
+    from yolov5_tpu.models.yolo import YOLOGraph, parse_graph
+
+    specs, save, _ = parse_graph(cfg)
+    module = YOLOGraph(tuple(specs), save, fused=fused, packed_stem=False)
+    tree = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 256, 3)),
+                                              train=False))
+    out = {}
+
+    def walk(coll, t, path):
+        for k, v in t.items():
+            if hasattr(v, "items"):
+                walk(coll, v, path + [k])
+            else:
+                out[coll, tuple(path + [k])] = tuple(v.shape)
+
+    for coll, t in tree.items():
+        walk(coll, t, [])
+    return out
+
+
+def check_full_width_layout(name):
+    """At full width: the port's state_dict has, key by key, the shape of
+    the JAX model's variable at the flax path ``torch_key_to_flax`` gives
+    (OIHW against HWIO, (out, in) against (in, out)), leaf for leaf; and the
+    port's ``fuse_conv_bn`` of it has the keys and shapes of its fused
+    model."""
+    from yolov5_tpu_torch.models.weights import fuse_conv_bn, torch_key_to_flax
+    from yolov5_tpu_torch.models.yolo import DetectionModel, load_config
+
+    cfg = load_config(name)
+    sd = DetectionModel(cfg).state_dict()
+    fused = {k: tuple(t.shape) for k, t in fuse_conv_bn(sd).items()}
+    assert fused == {k: tuple(t.shape) for k, t in DetectionModel(cfg, fused=True).state_dict()
+                     .items() if not k.endswith("num_batches_tracked")}
+    got = {}
+    for k, t in sd.items():
+        m = torch_key_to_flax(k)
+        if m is None:
+            continue
+        shape = tuple(t.shape)
+        if m[1][-1] == "kernel":
+            shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+        got[m[0], tuple(m[1])] = shape
+    assert got == _jax_shapes(cfg, fused=False)

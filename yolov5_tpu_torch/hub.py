@@ -20,7 +20,9 @@ from yolov5_tpu_torch.models.yolo import CONFIG_DIR
 
 
 def list_models():
-    return sorted(p.stem for p in CONFIG_DIR.glob("*.yaml"))
+    """The bundled model configs (anchors.yaml, a table of anchor presets,
+    is not one)."""
+    return sorted(p.stem for p in CONFIG_DIR.glob("*.yaml") if p.stem != "anchors")
 
 
 def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",

@@ -27,25 +27,56 @@ from yolov5_tpu_torch.models.layers import BN_EPS
 # BN folding
 # ---------------------------------------------------------------------------
 
-def fuse_conv_bn(state_dict: dict) -> dict:
-    """Fold every ``<p>.bn.*`` into its sibling ``<p>.conv.*``:
+def _fold(sd: dict, bn: str, weight: str, bias: str, rows=slice(None)):
+    """``weight`` and ``bias`` (keys of sd; the bias may be absent) with the
+    BN at prefix ``bn`` folded in, over the BN's channels ``rows``:
       w' = w * gamma / sqrt(var + eps),  b' = beta + (b - mean) * gamma / sqrt(var + eps)
-    (the math of ``yolov5_tpu.models.weights._fold``). Returns a new state
-    dict of f32 tensors with no BN entries; a dict with none is passed through."""
+    (the math of ``yolov5_tpu.models.weights._fold``)."""
+    gamma, beta = sd[bn + "weight"][rows].float(), sd[bn + "bias"][rows].float()
+    mean, var = sd[bn + "running_mean"][rows].float(), sd[bn + "running_var"][rows].float()
+    scale = gamma / torch.sqrt(var + BN_EPS)
+    prior = sd[bias].float() if bias in sd else 0.0
+    return sd[weight].float() * scale[:, None, None, None], beta + (prior - mean) * scale
+
+
+def fuse_conv_bn(state_dict: dict) -> dict:
+    """Fold each BN into the conv it follows, for a ``fused`` model. Returns a
+    new state dict of f32 tensors; one already folded passes through.
+
+      - ``<p>bn`` into ``<p>conv`` (Conv, and the Convs inside every block);
+      - ``<p>X_bn`` into ``<p>X_conv`` (CrossConv's cv1 and cv2 pairs);
+      - ``<p>bn`` over ``<p>m.{j}`` convs (MixConv2d): each conv takes its
+        slice of the BN's channels;
+      - any other ``<p>bn`` follows no conv (BottleneckCSP's, after a concat)
+        and stays, with its running statistics.
+
+    (The JAX package's ``fuse_conv_bn`` folds only the first kind: see
+    ROADMAP.md, "Know these gaps".)"""
     sd = {k: torch.as_tensor(v) for k, v in state_dict.items()
           if not k.endswith("num_batches_tracked")}
-    out = {k: v for k, v in sd.items() if ".bn." not in f".{k}"}
-    for k in list(out):
-        if not k.endswith("conv.weight") or k[:-len("conv.weight")] + "bn.weight" not in sd:
+    out = dict(sd)
+    for k in sd:
+        if not k.endswith("bn.running_var"):
             continue
-        p = k[:-len("conv.weight")]
-        gamma, beta = sd[p + "bn.weight"].float(), sd[p + "bn.bias"].float()
-        mean, var = sd[p + "bn.running_mean"].float(), sd[p + "bn.running_var"].float()
-        scale = gamma / torch.sqrt(var + BN_EPS)
-        out[k] = sd[k].float() * scale[:, None, None, None]
-        prior = sd[p + "conv.bias"].float() if p + "conv.bias" in sd else 0.0
-        out[p + "conv.bias"] = beta + (prior - mean) * scale
-    return out
+        bn = k[:-len("running_var")]  # "<p>bn." or "<p>X_bn."
+        p = bn[:-len("bn.")]
+        if p.endswith("_") or p + "conv.weight" in sd:  # <p>X_bn -> <p>X_conv, <p>bn -> <p>conv
+            convs = [p + "conv."]
+        else:
+            convs = []
+            while f"{p}m.{len(convs)}.weight" in sd and sd[f"{p}m.{len(convs)}.weight"].dim() == 4:
+                convs.append(f"{p}m.{len(convs)}.")
+        if not convs:
+            continue
+        start = 0
+        for c in convs:
+            n = sd[c + "weight"].shape[0]
+            out[c + "weight"], out[c + "bias"] = _fold(sd, bn, c + "weight", c + "bias",
+                                                       slice(start, start + n))
+            start += n
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            del out[bn + leaf]
+    return {k: v.float() for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -158,17 +189,23 @@ _LEAVES = {
     ("params", "bias"): "bias",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    # AconC's per-channel parameters: (c,) in flax, (1, c, 1, 1) here
+    ("params", "p1"): "p1",
+    ("params", "p2"): "p2",
+    ("params", "beta"): "beta",
 }
+_ACON = ("p1", "p2", "beta")
 _INDEXED = re.compile(r"^(.+)_(\d+)$")
 
 
 def _torch_module_path(path: list[str]) -> list[str]:
     """Flax module path -> torch module path: layers_{i} -> model.{i},
+    layers_{i}_{r} (repeat r of a sequential layer) -> model.{i}.{r},
     m_0 -> m.0, seq_{p} -> {p}."""
     out = []
     for j, p in enumerate(path):
         if j == 0 and p.startswith("layers_"):
-            out += ["model", p[len("layers_"):]]
+            out += ["model", *p[len("layers_"):].split("_")]
         elif p.startswith("seq_"):
             out.append(p[len("seq_"):])
         elif _INDEXED.match(p):
@@ -199,6 +236,8 @@ def from_jax_variables(variables) -> dict:
             a = v.float().numpy() if isinstance(v, torch.Tensor) else np.array(v, np.float32)
             if name == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T  # HWIO -> OIHW
+            elif name in _ACON:
+                a = a.reshape(1, -1, 1, 1)
             key = ".".join(_torch_module_path(path) + [leaf])
             sd[key] = torch.from_numpy(np.ascontiguousarray(a))
 
@@ -215,8 +254,12 @@ def from_jax_variables(variables) -> dict:
 def torch_key_to_flax(key: str):
     """One state_dict key -> (collection, flax path list), or None for keys
     with no flax counterpart (num_batches_tracked). A copy of the mapping of
-    ``yolov5_tpu.models.weights.torch_key_to_flax`` for the layers the port
-    has: model.{i} -> layers_{i}, m.0 -> m_0."""
+    ``yolov5_tpu.models.weights.torch_key_to_flax``: model.{i} -> layers_{i},
+    m.0 -> m_0; with two fixes, so that it inverts ``from_jax_variables`` on
+    every layout the JAX package builds: model.{i}.{r} (repeat r of a
+    sequential layer) -> layers_{i}_{r}, where the JAX mapping gives
+    layers_{i}/seq_{r}, which its model does not have; and AconC's p1, p2
+    and beta, which the JAX mapping drops."""
     if key.endswith("num_batches_tracked"):
         return None
     parts = key.split(".")
@@ -227,6 +270,9 @@ def torch_key_to_flax(key: str):
     if parts and parts[0].isdigit():
         out.append(f"layers_{parts[0]}")
         i = 1
+        if len(parts) > 2 and parts[1].isdigit():  # a sequential repeat
+            out[0] += f"_{parts[1]}"
+            i = 2
     leaf, mids = parts[-1], parts[i:-1]
     j = 0
     while j < len(mids):
@@ -238,7 +284,8 @@ def torch_key_to_flax(key: str):
             j += 1
     bn = bool(out) and (out[-1] == "bn" or out[-1].endswith("_bn"))
     leaves = {"weight": ("params", "scale" if bn else "kernel"), "bias": ("params", "bias"),
-              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+              **{a: ("params", a) for a in _ACON}}
     if leaf not in leaves:
         return None
     coll, name = leaves[leaf]
@@ -262,6 +309,8 @@ def to_jax_variables(state_dict: dict) -> dict:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif path[-1] == "kernel" and a.ndim == 2:
             a = a.T  # a Linear's (out, in) -> a Dense kernel's (in, out)
+        elif path[-1] in _ACON:
+            a = a.reshape(-1)
         node = out[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -4,8 +4,9 @@
 are copies of ``yolov5_tpu/models/yolo.py`` without JAX, tested equal to
 their originals on every bundled config; the configs themselves are read by
 path from ``yolov5_tpu/models/configs``. ``DetectionModel`` is an
-``nn.Module`` that executes the parsed layer list with the reference's
-save-list, probes its strides with a real forward, and draws seeded
+``nn.Module`` that builds every module of the JAX package's registry
+(sequential repeats as ``nn.Sequential``), executes the parsed layer list
+with the reference's save-list, probes its strides with a real forward, and draws seeded
 torch-style initial weights; with a Segment head it returns ``(maps,
 proto)``, and ``SegmentationModel`` names that case. ``ClassificationModel``
 runs the detection graph cut at ``cutoff`` with a Classify head appended.
@@ -219,27 +220,42 @@ def check_anchor_order(anchors, strides):
     return tuple(tuple(map(tuple, lvl)) for lvl in a)
 
 
-# the canonical blocks this port builds; other YAML modules are later work
-_REGISTRY = {"Conv": L.Conv, "C3": L.C3, "SPPF": L.SPPF}
+# the YAML modules that take their input's channel count first, as the JAX
+# package's registry (yolov5_tpu/models/yolo.py) names them
+_REGISTRY = {
+    "Conv": L.Conv, "DWConv": L.DWConv, "Bottleneck": L.Bottleneck,
+    "BottleneckCSP": L.BottleneckCSP, "CrossConv": L.CrossConv, "C3": L.C3, "C3x": L.C3x,
+    "C3TR": L.C3TR, "C3SPP": L.C3SPP, "C3Ghost": L.C3Ghost, "SPP": L.SPP, "SPPF": L.SPPF,
+    "Focus": L.Focus, "GhostConv": L.GhostConv, "GhostBottleneck": L.GhostBottleneck,
+    "MixConv2d": L.MixConv2d, "TransformerBlock": L.TransformerBlock,
+}
+# the YAML modules without channels: their spec args are their constructor's
+# (MaxPool's (k, s, p) and ZeroPad's (l, r, t, b) are torch's own arguments)
+_SHAPE_ONLY = {"Concat": L.Concat, "Upsample": L.Upsample, "Contract": L.Contract,
+               "Expand": L.Expand, "MaxPool": nn.MaxPool2d, "ZeroPad": nn.ZeroPad2d}
 
 
 def _build_module(spec: LayerSpec, c_in: list, fused: bool) -> nn.Module:
-    """Construct one layer; ``c_in`` holds each input's channel count."""
-    if spec.n != 1:
-        raise NotImplementedError(f"layer {spec.i}: sequential repeats are not ported")
-    if spec.module == "Concat":
-        return L.Concat()
-    if spec.module == "Upsample":
-        return L.Upsample(spec.args[0])
+    """Construct one layer; ``c_in`` holds each input's channel count. A
+    sequential repeat (``spec.n`` > 1) is an ``nn.Sequential`` of ``n``
+    copies, the first from c_in[0] channels and the others from c2, so its
+    keys read ``model.{i}.{r}.…`` (the JAX package's ``layers_{i}_{r}``)."""
+    if spec.n > 1:
+        one = dataclasses.replace(spec, n=1)
+        return nn.Sequential(*(_build_module(one, c_in if r == 0 else [spec.c2], fused)
+                               for r in range(spec.n)))
+    kw = dict(spec.kwargs)
+    if spec.module in _SHAPE_ONLY:
+        return _SHAPE_ONLY[spec.module](*spec.args)
     if spec.module == "Detect":
         return L.Detect(spec.args[0], spec.args[1], c_in)
     if spec.module == "Segment":
-        return L.Segment(spec.args[0], spec.args[1], c_in, fused=fused, **dict(spec.kwargs))
+        return L.Segment(spec.args[0], spec.args[1], c_in, fused=fused, **kw)
     if spec.module == "Classify":
-        return L.Classify(c_in[0], *spec.args, fused=fused, **dict(spec.kwargs))
+        return L.Classify(c_in[0], *spec.args, fused=fused, **kw)
     if spec.module not in _REGISTRY:
-        raise NotImplementedError(f"layer {spec.i}: module {spec.module} is not ported")
-    return _REGISTRY[spec.module](c_in[0], *spec.args, fused=fused, **dict(spec.kwargs))
+        raise NotImplementedError(f"layer {spec.i}: module {spec.module} is not in the registry")
+    return _REGISTRY[spec.module](c_in[0], *spec.args, fused=fused, **kw)
 
 
 def _init_weights(model: nn.Module, gen: torch.Generator) -> None:

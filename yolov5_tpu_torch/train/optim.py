@@ -78,10 +78,14 @@ def make_schedules(hyp, epochs, steps_per_epoch, batch_size, nbs=64, cos_lr=Fals
 
 def group_of(key: str) -> str:
     """'bias' | 'bn' | 'weight' for a state_dict key (the JAX package's
-    ``_group_of`` on the matching flax path)."""
+    ``_group_of`` on the matching flax path): every bias, then the scale of
+    every BN (a module named ``bn`` or ``*_bn``), then the rest (conv and
+    Linear weights, AconC's p1, p2 and beta)."""
     if key.endswith(".bias"):
         return "bias"
-    if key.endswith(".bn.weight"):
+    parts = key.split(".")
+    if parts[-1] == "weight" and len(parts) > 1 and (parts[-2] == "bn"
+                                                    or parts[-2].endswith("_bn")):
         return "bn"
     return "weight"
 
