@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
 training, the detect CLI's run, the HTTP service, segmentation predict,
-segmentation training and validation, classification, and every config of
-the model zoo.
+segmentation training and validation, classification, every config of the
+model zoo, and export with the exported backends.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --zoo-only   # phases 1, 2 and 19 alone
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
@@ -148,8 +149,30 @@ Phases, one line each:
      candidates (masks equal to the plain version's), K2 at b8 x 1280² bf16
      within one ulp of its plain version, each beside its bound, its plain
      version and (K2) cuDNN's bf16 conv + SiLU; the phase's wall time.
+ 20. export (run after 19): yolov5s at 640 px, f32 without TF32, phase 13's
+     calibrated weights: (a) ``python -m yolov5_tpu_torch.export --include
+     ckpt pt2 onnx`` (``main`` in this process) at b32 and b1, each format's
+     size and seconds; (b) Detector(.onnx) on the card, b32 over the smoke
+     sources: decoded predictions within 1e-3 of the largest value of the
+     BN-folded Detector.forward (K2), at conf 0.25 equal counts and >= 99%
+     of the detections within 1 px, K1 launched; (c) phase 11's
+     trained best.ckpt (the val set's classes) exported at b32: ``val
+     --weights .onnx`` against ``val`` of its fused .ckpt at --no-rect: P, R,
+     mAP50, mAP50-95 within 1e-3 and mAP50 above 0, equal detection counts,
+     >= 99% within 1 px, K1 launched; (d) ``detect --weights .onnx`` (b1) over the 32 sources:
+     every txt equals Detector.__call__ on the image; (e) a KServe v2 server
+     on 127.0.0.1 running the b1 .onnx through the port's runtime:
+     Detector("triton+http://...") gives (b)'s detections on KSERVE_IMAGES
+     images, K1 launched; (f) ``dnn=True``: within 2e-3 of the runtime where
+     OpenCV is installed, else ImportError naming it; (g) CUDA-event times of
+     the runtime's b32 forward beside Detector.forward in f32 and bf16, a
+     profile line (its launches), autobatch's batch for the yolov5s 640 bf16
+     train step and one step at it with its peak memory beside the limit,
+     model_info; the phase's wall time. K2 is counted on (b)-(e) too, and
+     must launch nowhere: the exported graph holds the plain stem.
 Then one JSON line with each kernel's launches (in all, and per main-path
-call), error, times, bound and yardstick (and under "zoo" phase 19's), and last
+call), error, times, bound and yardstick (and under "zoo" phase 19's, under
+"export" phase 20's numbers and K1's launches by path), and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -157,6 +180,7 @@ before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import itertools
@@ -1068,7 +1092,7 @@ def phase_train(dev, data, root, smi):
           f"(tolerance {RESUME_RTOL})")
     if len(resumed) != TRAIN_EPOCHS or rel > RESUME_RTOL:
         raise AssertionError(f"train: resume differs from the uninterrupted run ({rel})")
-    return launches
+    return launches, save_dir / "best.ckpt"
 
 
 def phase_train_times(dev, data, smi):
@@ -2756,6 +2780,281 @@ def phase_zoo(dev, root, train_data, smi):
     return {k: detect_launches[k] + cli_launches[k] for k in detect_launches}, times
 
 
+# phase 20: export and the exported backends, yolov5s at 640 px in f32 with
+# phase 13's calibrated weights; the KServe phase's images (a b1 request's
+# JSON body is ~5 MB in and ~40 MB out), and autobatch's probe batches
+KSERVE_IMAGES = 2
+AUTOBATCH_PROBES = (16, 64)
+
+
+def _export_cli(argv):
+    """``python -m yolov5_tpu_torch.export <argv>`` in this process: its
+    artifacts, wall seconds, and each format's (MB, s) from its report."""
+    t0 = time.perf_counter()
+    out = _cli("yolov5_tpu_torch.export", argv)
+    wall = time.perf_counter() - t0
+    sizes = {m.group(1): (float(m.group(2)), float(m.group(3)))
+             for m in re.finditer(r"export (\w+): ok, \S+ \(([\d.]+) MB, ([\d.]+)s\)", out)}
+    arts = {m.group(1): Path(m.group(2))
+            for m in re.finditer(r"'(\w+)': '([^']+)'", out.strip().splitlines()[-1])}
+    traced = re.search(r"export: traced .* in ([\d.]+)s", out)
+    if set(sizes) != {"ckpt", "pt2", "onnx"} or not all(a.exists() for a in arts.values()):
+        raise AssertionError(f"export {argv}: {out[-2000:]}")
+    return arts, wall, sizes, float(traced.group(1))
+
+
+def phase_export(dev, root, data, weights, trained, smi):
+    """Phase 20 (a)-(g): export yolov5s at b32 and b1 with the CLI, then the
+    .onnx on the card through Detector, val (on the export of ``trained``,
+    phase 11's best.ckpt), detect, a KServe server and --dnn, against the
+    BN-folded model; the runtime's and the forwards' times, autobatch and
+    model_info. Returns the kernels' launches on the exported paths (K2's
+    must be 0) and the phase's numbers."""
+    import torch
+
+    from yolov5_tpu_torch import export as export_mod
+    from yolov5_tpu_torch import infer
+    from yolov5_tpu_torch.data.letterbox import scale_boxes_np
+    from yolov5_tpu_torch.eval.evaluator import run as val_run
+    from yolov5_tpu_torch.ops.nms import detections_to_numpy
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.onnx.kserve import serve_kserve
+    from yolov5_tpu_torch.onnx.runtime import Runtime
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    def reset():
+        stem_conv.launches = greedy_nms.launches = 0
+
+    def read(path):
+        launches[path], stem_launches[path] = greedy_nms.launches, stem_conv.launches
+
+    launches, stem_launches = {}, {}
+    t_phase = time.perf_counter()
+    torch_tf32_off()
+    out_dir = Path(root) / "export"
+    paths, im0s, batch = smoke_sources(root)
+    # (a) the CLI at b32 and at b1, from a fused .ckpt of the calibrated weights
+    with contextlib.redirect_stdout(io.StringIO()):
+        src = export_mod.run(weights=weights, cfg="yolov5s", imgsz=IMGSZ, include=("ckpt",),
+                             output_dir=str(out_dir), name="calibrated", device=dev)["ckpt"]
+    made = {}
+    for bs in (BATCH, 1):
+        made[bs] = _export_cli(["--weights", str(src), "--imgsz", str(IMGSZ), "--batch-size",
+                                str(bs), "--include", "ckpt", "pt2", "onnx", "--output-dir",
+                                str(out_dir / f"b{bs}")])
+    print(f"export (a): python -m yolov5_tpu_torch.export yolov5s {IMGSZ}px f32 --include ckpt "
+          "pt2 onnx: " + "; ".join(
+              f"b{bs} {wall:.1f} s wall (trace {traced:.1f} s; "
+              + ", ".join(f"{k} {mb:.1f} MB in {sec:.1f} s" for k, (mb, sec) in sizes.items())
+              + ")" for bs, (_, wall, sizes, traced) in made.items()) + f" | {smi}")
+    onnx32, onnx1 = made[BATCH][0]["onnx"], made[1][0]["onnx"]
+
+    # (b) the .onnx on the card against the BN-folded model (K2 in f32)
+    images = torch.from_numpy(batch).to(dev)
+    det = infer.Detector(str(onnx32))
+    if det.backend != "onnx" or det.model is not None or det.device.type != dev.type:
+        raise AssertionError(f"export (b): backend {det.backend} on {det.device}")
+    reset()
+    with uncounted():
+        ref_det = infer.Detector(weights, cfg="yolov5s", imgsz=IMGSZ, device=dev)
+        ref_pred = ref_det.forward(images)
+        ref_rows = detections_to_numpy(ref_det(images))
+    pred = det.forward(images)
+    err = (pred - ref_pred).abs().max().item()
+    scale = ref_pred.abs().max().item()
+    rows = detections_to_numpy(det(images))
+    read("b")
+    same_counts = [len(r) for r in rows] == [len(r) for r in ref_rows]
+    hit, total, score_diff, box_err = match_detections(rows, ref_rows)
+    print(f"export (b): Detector(.onnx) on {det.device} b{BATCH}: decoded predictions within "
+          f"{err:.3g} of the BN-folded Detector.forward f32 (largest {scale:.4g}, relative "
+          f"{err / scale:.3g}); conf 0.25: {sum(map(len, rows))} detections, counts "
+          f"{'equal' if same_counts else 'DIFFER'}, {hit}/{total} within 1 px (max box "
+          f"{box_err:.3g} px, score {score_diff:.3g}); K1 launches {launches['b']}, K2 "
+          f"{stem_launches['b']} | {smi}")
+    if err > 1e-3 * scale or launches["b"] < 1 or not same_counts or hit < 0.99 * total:
+        raise AssertionError("export (b): the .onnx on the card differs from the model")
+
+    # (c) val --weights x.onnx (b32) against val of the fused .ckpt at
+    # rect=False, both exported from phase 11's trained yolov5s: its classes
+    # are the val set's, so P, R and the mAPs are not all zero
+    with contextlib.redirect_stdout(io.StringIO()):
+        val_arts = export_mod.run(weights=str(trained), cfg="yolov5s", imgsz=IMGSZ,
+                                  batch_size=BATCH, include=("ckpt", "onnx"),
+                                  output_dir=str(out_dir / "trained"), device=dev)
+    reset()
+    with captured_detections() as val_rows:
+        cli = _cli("yolov5_tpu_torch.val", ["--data", str(data), "--weights",
+                                            str(val_arts["onnx"]), "--imgsz", str(IMGSZ),
+                                            "--batch-size", str(BATCH), "--workers", "0",
+                                            "--no-verbose"])
+    got = json.loads(cli.strip().splitlines()[-1])
+    with uncounted(), contextlib.redirect_stdout(io.StringIO()), \
+            captured_detections() as ckpt_rows:
+        ref = val_run(str(data), weights=str(val_arts["ckpt"]), imgsz=IMGSZ,
+                      batch_size=BATCH, rect=False, workers=0, verbose=False, device=dev)
+    read("c")
+    diffs = {k: abs(got[k] - ref[k]) for k in ("mp", "mr", "map50", "map")}
+    a, b = (sum(batches, []) for batches in (val_rows, ckpt_rows))
+    val_counts = [len(r) for r in a] == [len(r) for r in b]
+    v_hit, v_total, *_ = match_detections(a, b)
+    print(f"export (c): val --weights .onnx b{BATCH} (phase 11's best.ckpt): P {got['mp']:.5f} R {got['mr']:.5f} "
+          f"mAP50 {got['map50']:.5f} mAP50-95 {got['map']:.5f} over {got['images']} images "
+          f"(speed_ms {got['speed_ms']}); the fused .ckpt at --no-rect: P {ref['mp']:.5f} "
+          f"R {ref['mr']:.5f} mAP50 {ref['map50']:.5f} mAP50-95 {ref['map']:.5f}; largest "
+          f"difference {max(diffs.values()):.3g}; detections (conf 0.001, max_det 300) counts "
+          f"{'equal' if val_counts else 'DIFFER'}, {v_hit}/{v_total} within 1 px; K1 launches "
+          f"{launches['c']}, K2 {stem_launches['c']} | {smi}")
+    if max(diffs.values()) > 1e-3 or not ref["map50"] > 0 or launches["c"] < 1 \
+            or not val_counts or v_hit < 0.99 * v_total:
+        raise AssertionError(f"export (c): val of the .onnx against the .ckpt: {diffs}")
+
+    # (d) detect --weights x.onnx (b1) over the smoke sources: txt rows =
+    # Detector.__call__ on the same images
+    src_dir = Path(root) / "export_sources"
+    src_dir.mkdir(exist_ok=True)
+    for p in paths:
+        (src_dir / p.name).write_bytes(p.read_bytes())
+    reset()
+    t0 = time.perf_counter()
+    _cli("yolov5_tpu_torch.detect", ["--weights", str(onnx1), "--source", str(src_dir),
+                                     "--imgsz", str(IMGSZ),
+                                     "--save-txt", "--nosave", "--project",
+                                     str(Path(root) / "runs"), "--name", "export_detect",
+                                     "--exist-ok"])
+    detect_s = time.perf_counter() - t0
+    read("d")
+    save_dir = Path(root) / "runs" / "export_detect"
+    det1 = infer.Detector(str(onnx1))
+    n_rows = 0
+    with uncounted():
+        for p, im0, lb in zip(paths, im0s, batch):
+            r = detections_to_numpy(det1(lb[None]))[0]
+            r[:, :4] = scale_boxes_np(batch.shape[1:3], r[:, :4], im0.shape[:2])
+            txt = save_dir / "labels" / f"{p.stem}.txt"
+            if (txt.read_text().splitlines() if txt.exists() else []) != _txt_lines(r, im0):
+                raise AssertionError(f"export (d): {txt.name} differs from Detector.__call__")
+            n_rows += len(r)
+    print(f"export (d): detect --weights .onnx b1 over {len(paths)} BMPs in {detect_s:.1f} s "
+          f"(model load included): every txt equals Detector.__call__ ({n_rows} rows); K1 "
+          f"launches {launches['d']}, K2 {stem_launches['d']} | {smi}")
+    if launches["d"] < len(paths):
+        raise AssertionError(f"export (d): K1 launched {launches['d']} times for {len(paths)} "
+                             "images")
+
+    # (e) a KServe v2 server on 127.0.0.1 running the b1 .onnx; Detector("triton+http://")
+    with serve_kserve(Runtime(Path(onnx1).read_bytes(), device=dev)) as url:
+        reset()
+        remote = infer.Detector(f"triton+{url}/det", imgsz=IMGSZ)
+        t0 = time.perf_counter()
+        kserve_rows = [detections_to_numpy(remote(batch[i:i + 1]))[0]
+                       for i in range(KSERVE_IMAGES)]
+        kserve_ms = 1e3 * (time.perf_counter() - t0) / KSERVE_IMAGES
+        read("e")
+    same = [len(r) for r in kserve_rows] == [len(r) for r in rows[:KSERVE_IMAGES]]
+    k_hit, k_total, *_ = match_detections(kserve_rows, rows[:KSERVE_IMAGES])
+    print(f"export (e): Detector(triton+http://127.0.0.1/det) over a KServe v2 server running "
+          f"the b1 .onnx on the card: {KSERVE_IMAGES} images, counts "
+          f"{'equal' if same else 'DIFFER'} to (b), {k_hit}/{k_total} within 1 px; "
+          f"{kserve_ms:.0f} ms/image (JSON tensors); K1 launches {launches['e']}, K2 "
+          f"{stem_launches['e']} | {smi}")
+    if not same or k_hit < 0.99 * k_total or launches["e"] < KSERVE_IMAGES:
+        raise AssertionError("export (e): the remote detections differ from (b)")
+
+    # (f) --dnn: OpenCV's DNN module where OpenCV is installed, else ImportError naming it
+    try:
+        dnn = infer.Detector(str(onnx1), dnn=True)
+    except ImportError as e:
+        if "OpenCV" not in str(e):
+            raise
+        print(f"export (f): --dnn raises ImportError naming OpenCV: {e}")
+    else:
+        a = dnn.forward(batch[:1])
+        b = det1.forward(batch[:1])
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-3, rtol=2e-3)
+        print(f"export (f): --dnn (OpenCV {__import__('cv2').__version__}) within 2e-3 of "
+              f"the runtime (max {(a - b).abs().max().item():.3g})")
+
+    # (g) times by CUDA events, the runtime's launches, autobatch, model_info
+    times = phase_export_times(dev, det, onnx32, ref_det, weights, images, smi)
+    print(f"export: phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    if any(stem_launches.values()):
+        raise AssertionError(f"export: K2 launched on an exported path: {stem_launches}")
+    return {"greedy_nms": sum(launches.values()), "stem_conv": sum(stem_launches.values())}, \
+        dict(times, max_abs_err=err, launches_by_path=launches, val_map50=ref["map50"])
+
+
+def phase_export_times(dev, det, onnx_path, ref_det, weights, images, smi):
+    """Phase 20 (g): the ONNX runtime's b32 forward beside Detector.forward
+    in f32 and bf16, its launches per call (profiler), autobatch's batch for
+    the yolov5s 640 bf16 train step and one step at it, model_info."""
+    import torch
+
+    from yolov5_tpu_torch import infer
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.autobatch import autobatch, device_memory_bytes
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+    from yolov5_tpu_torch.utils.profile import model_info
+
+    with uncounted():
+        half = infer.Detector(weights, cfg="yolov5s", imgsz=IMGSZ, half=True, device=dev)
+        rt_ms = cuda_ms(lambda: det.forward(images), iters=5)
+        f32_ms = cuda_ms(lambda: ref_det.forward(images), iters=5)
+        bf16_ms = cuda_ms(lambda: half.forward(images), iters=5)
+        line = profile_line(lambda: det.forward(images), f"ONNX runtime forward b{BATCH} "
+                            f"{IMGSZ}px f32", smi)
+    from yolov5_tpu_torch.onnx import proto
+
+    n_nodes = len(proto.parse_model(Path(onnx_path).read_bytes()).graph.nodes)
+    print(f"export (g): b{BATCH} {IMGSZ}px decoded forward: ONNX runtime {rt_ms:.3f} ms "
+          f"({n_nodes} nodes a call), Detector.forward f32 {f32_ms:.3f} ms, bf16 "
+          f"{bf16_ms:.3f} ms (CUDA events) | {smi}")
+    print(line)
+    del half
+
+    # autobatch: the bf16 train step on a resident batch of bs images
+    hyp = load_hyp("scratch-low")
+    model = DetectionModel("yolov5s", nc=VAL_CLASSES).to(dev).to(memory_format=torch.channels_last)
+    scaled = scale_hyp(hyp, nl=3, nc=VAL_CLASSES, imgsz=IMGSZ)
+    loss_fn = ComputeLoss(model.anchors_per_stride, VAL_CLASSES, scaled)
+    state = init_train_state(model, Optimizer(dict(model.named_parameters()), scaled, 1, 1, BATCH))
+    step = make_train_step(loss_fn, None, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def make(bs):
+        boxes = torch.rand((bs, 8, 4), device=dev, generator=gen) * 0.3 + 0.2
+        batch = {"images": torch.randint(0, 256, (bs, IMGSZ, IMGSZ, 3), dtype=torch.uint8,
+                                         device=dev, generator=gen),
+                 "targets": torch.cat([torch.randint(0, VAL_CLASSES, (bs, 8, 1), device=dev,
+                                                     generator=gen).float(), boxes], -1),
+                 "valid": torch.ones((bs, 8), dtype=torch.bool, device=dev)}
+        return step, state, batch
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        bs = autobatch(make, probes=AUTOBATCH_PROBES)
+    limit = 0.8 * device_memory_bytes()
+    _, _, chosen = make(bs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(state, chosen), iters=2, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del chosen, state, model
+    torch.cuda.empty_cache()
+    print(f"export (g): {printed.getvalue().strip()} (probes b{AUTOBATCH_PROBES[0]}, "
+          f"b{AUTOBATCH_PROBES[1]}); one yolov5s {IMGSZ}px bf16 train step at b{bs}: "
+          f"{step_ms:.1f} ms, peak {peak / 2 ** 30:.2f} GiB "
+          f"({'within' if peak <= limit else 'OVER'}) the {limit / 2 ** 30:.2f} GiB limit | {smi}")
+    info = model_info(DetectionModel("yolov5s"), imgsz=IMGSZ, verbose=False)
+    print(f"export (g): model_info yolov5s {IMGSZ}px: {info['layers']} layers, "
+          f"{info['parameters']} parameters, {info['gflops_per_img']} GFLOPs an image "
+          "(convolutions and products, FlopCounterMode)")
+    return {"onnx_runtime_ms": rt_ms, "forward_f32_ms": f32_ms, "forward_bf16_ms": bf16_ms,
+            "autobatch": bs, "autobatch_step_ms": step_ms, "autobatch_peak_gib": peak / 2 ** 30}
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -2790,15 +3089,26 @@ def profile_line(fn, what, smi, iters=3):
             f"kernel launches; {parts} | {smi}")
 
 
-def main():
+def main(argv=None):
     import torch
 
+    parser = argparse.ArgumentParser(description="Drive the port's paths on one CUDA card.")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="phases 1, 2 and 19 alone (on the val and train data that 19 "
+                             "needs), and no result lines: a copy of this script in each of "
+                             "two checkouts compares their phase 19 readings in one call")
+    opt = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     _import_port()
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
+    if opt.zoo_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
+            phase_val_data(root)
+            phase_zoo(dev, root, phase_train_data(root), smi)
+        return 0
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
     det, batch, launches = phase_slice(dev)
@@ -2808,7 +3118,7 @@ def main():
         a, val_launches = phase_val(dev, data, smi)
         phase_val_times(dev, data, a, smi)
         train_data = phase_train_data(root)
-        train_launches = phase_train(dev, train_data, root, smi)
+        train_launches, trained = phase_train(dev, train_data, root, smi)
         phase_train_times(dev, train_data, smi)
         host_data = phase_train_host_data(root)
         host_launches = phase_train_host(dev, host_data, root, smi)
@@ -2826,17 +3136,19 @@ def main():
         cls_predict_launches = phase_classify_predict(dev, cls_data, cls_run, root, smi)
         phase_classify_times(dev, smi)
         zoo_launches, zoo_times = phase_zoo(dev, root, train_data, smi)
+        export_launches, export_numbers = phase_export(dev, root, data, weights, trained,
+                                                       smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
                 + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
-                for k, n in launches.items()}
+                + export_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
          "launches_per_call": per_call["greedy_nms"], "max_abs_err": nms_err,
-         **times["greedy_nms"], "zoo": zoo_times["greedy_nms"]},
+         **times["greedy_nms"], "zoo": zoo_times["greedy_nms"], "export": export_numbers},
         {"name": "stem_conv", "route": "cuda", "source": "yolov5_tpu_torch/csrc/stem_conv.cu",
          "replaces": "yolov5_tpu/ops/stem_pallas.py:180",
          "also_replaces": "yolov5_tpu/ops/stem_pallas.py:151 (K2b, the same function in the "

@@ -156,6 +156,8 @@ def test_detector_ckpt_without_ema_and_weights_errors(tmp_path):
     for m, r in zip(det.forward_maps(ims), ref.forward_maps(ims)):
         np.testing.assert_array_equal(m.numpy(), r.numpy())
     with pytest.raises(ValueError, match=r"\.pt or \.ckpt"):
+        Detector(str(tmp_path / "weights.bin"), device="cpu")
+    with pytest.raises(FileNotFoundError):  # an exported model: the ONNX backend reads it
         Detector(str(tmp_path / "weights.onnx"), device="cpu")
     with pytest.raises(ValueError, match="ensemble"):
         Detector([str(path), str(path)], device="cpu")

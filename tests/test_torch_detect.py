@@ -191,11 +191,37 @@ def test_view_img_disables_itself(case, tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out.count("not installed, disabled") == 1
 
 
-def test_exported_backends_and_dnn_raise(tmp_path):
-    for kw in (dict(weights="m.onnx"), dict(weights="m_saved_model"), dict(weights="m.tflite"),
-               dict(weights="triton+http://localhost:8000/m"), dict(weights="", dnn=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            port_infer.run(source=str(tmp_path), project=str(tmp_path), device="cpu", **kw)
+def test_exported_backends_and_dnn_raise(tmp_path, monkeypatch):
+    """Exported weights reach their backends (no longer NotImplementedError):
+    a file that is not there raises FileNotFoundError, a server that does not
+    answer URLError, and a backend whose library is missing raises
+    ImportError naming it (OpenCV for --dnn, TensorFlow for the TF exports)
+    rather than running another backend."""
+    import socket
+    import urllib.error
+
+    from yolov5_tpu_torch.onnx import proto
+
+    kw = dict(source=str(tmp_path), project=str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        port_infer.run(weights=str(tmp_path / "m.onnx"), **kw)
+    with socket.socket() as sock:  # a port that nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with pytest.raises(urllib.error.URLError):
+        port_infer.run(weights=f"triton+http://127.0.0.1:{port}/m", **kw)
+    onnx = tmp_path / "id.onnx"
+    onnx.write_bytes(proto.model(proto.graph(
+        [proto.node("Identity", ["images"], ["output_0"])], "id",
+        [proto.value_info("images", proto.UINT8, [1, 8, 8, 3])],
+        [proto.value_info("output_0", proto.UINT8, [1, 8, 8, 3])], [])))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="OpenCV"):
+        port_infer.run(weights=str(onnx), dnn=True, **kw)
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    for w in ("m_saved_model", "m.tflite", "m.pb"):
+        with pytest.raises(ImportError, match="TensorFlow"):
+            port_infer.run(weights=str(tmp_path / w), **kw)
 
 
 def test_run_defaults_to_the_card(case, tmp_path):

@@ -16,8 +16,13 @@ Subpackages
   sources, the dataset and loader, augmentation on the device, the
   device-resident training set
 - ``infer``  — ``Detector`` (uint8 batch in, padded ``Detections`` out;
-  decoded and TTA forwards), ``Ensemble``, annotation, ``run`` (the detect
-  loop); ``infer_segment`` — segmentation predict
+  decoded and TTA forwards; the exported backends: ``.onnx``, OpenCV DNN,
+  KServe v2, the JAX package's TF exports), ``Ensemble``, annotation,
+  ``run`` (the detect loop); ``infer_segment`` — segmentation predict
+- ``export`` — ``python -m yolov5_tpu_torch.export``: the fused ``.ckpt``,
+  the ``torch.export`` program (``.pt2``) and ``.onnx``; ``onnx`` — the wire
+  codec, the torch.export -> ONNX converter and a runtime on torch tensors;
+  ``remote`` — the REST and KServe v2 clients
 - ``detect``, ``segment``, ``serve`` — the detect CLI, the segmentation CLI
   (``predict``), the HTTP service; ``hub``, ``results`` — model loading and
   end-user results
@@ -26,7 +31,7 @@ Subpackages
   training loop and its CLI, ``python -m yolov5_tpu_torch.train``
 - ``utils``  — run directories, dataset configs, ``.ckpt`` reading and
   writing, hyperparameters, callbacks, the CSV logger, autoanchor, URL
-  fetching, the label font
+  fetching, the label font, profiling (``profile``) and ``autobatch``
 - ``val``    — the validation CLI, ``python -m yolov5_tpu_torch.val``
 
 The CUDA kernels under ``csrc/`` are built by ``_build.py`` at first use on a

@@ -2,6 +2,7 @@
 
     python -m yolov5_tpu_torch.detect --weights best.ckpt --source images/
     python -m yolov5_tpu_torch.detect --device cpu --weights best.ckpt --source images/
+    python -m yolov5_tpu_torch.detect --weights best.onnx --source images/
 
 Writes annotated images (and with ``--save-txt`` / ``--save-csv`` /
 ``--save-crop`` labels, a CSV and crops) under ``--project/--name``.
@@ -17,7 +18,9 @@ import argparse
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(prog="python -m yolov5_tpu_torch.detect")
     p.add_argument("--weights", default="",
-                   help=".ckpt or .pt weights (default: seeded random weights)")
+                   help=".ckpt or .pt weights, or an exported model (.onnx, "
+                        "triton+http://host:port/model, the JAX package's TF exports); "
+                        "default: seeded random weights")
     p.add_argument("--cfg", default="yolov5s", help="model config when weights lack meta")
     p.add_argument("--source", required=True, help="file/dir/glob/video")
     p.add_argument("--imgsz", "--img", type=int, default=640)
@@ -45,7 +48,8 @@ def parse_opt(argv=None):
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--half", action="store_true", help="bfloat16 forward")
     p.add_argument("--dnn", action="store_true",
-                   help="run .onnx weights via OpenCV DNN (not ported: raises)")
+                   help="run .onnx weights via OpenCV DNN instead of the port's ONNX runtime "
+                        "(raises ImportError where OpenCV is not installed)")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     return p.parse_args(argv)
 

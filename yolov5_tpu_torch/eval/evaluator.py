@@ -222,25 +222,39 @@ def run(data, weights=None, cfg="yolov5s", imgsz=640, batch_size=32,
         workers=8, half=False, verbose=True, task="val", save_json=None,
         coco91=None, rect=True, native_space=True, augment=False,
         save_txt=False, save_conf=False, save_hybrid=False,
-        project="runs/val", name="exp", exist_ok=False, device="cuda"):
+        project="runs/val", name="exp", exist_ok=False, device="cuda", dnn=False):
     """Standalone validation entry (reference val.py:112-440) on ``device``;
     a CUDA device that is not there raises. ``weights`` as ``Detector``
-    takes them (None, .pt, .ckpt or a state_dict).
+    takes them (None, .pt, .ckpt, a state_dict, or an exported model: .onnx,
+    with ``dnn`` through OpenCV, ``triton+http://``, the JAX package's
+    TensorFlow exports).
 
     Defaults match the reference protocol: rect batching (pad 0.5,
-    val.py:196) and native-space matching (val.py:240)."""
+    val.py:196) and native-space matching (val.py:240). An exported model
+    (the JAX evaluator's branch, evaluator.py:295-334) has a fixed input:
+    its export size overrides ``imgsz`` with a warning, its batches are
+    square (no rect), and TTA is ignored with a warning; its graph's batch
+    is fixed too, so ``batch_size`` must be the export's (else the runtime
+    raises, as the JAX package's does)."""
     from yolov5_tpu_torch.data.dataset import create_loader
-    from yolov5_tpu_torch.infer import Detector
+    from yolov5_tpu_torch.infer import Detector, export_size
     from yolov5_tpu_torch.utils.general import check_dataset, check_img_size, increment_path
 
     data_dict = check_dataset(data)
-    det = Detector(weights, cfg=cfg, imgsz=imgsz, half=half, device=device)
-    stride = max(det.stride)
+    det = Detector(weights, cfg=cfg, imgsz=imgsz, half=half, device=device, dnn=dnn)
+    if det.model is None:
+        stride = 32
+        imgsz = export_size(det, imgsz, weights)
+        if augment:
+            print("WARNING: --augment (TTA) is unsupported for exported backends, ignoring")
+            augment = False
+    else:
+        stride = max(det.stride)
     imgsz = check_img_size(imgsz, s=stride)
     split = data_dict.get(task) or data_dict.get("val") or data_dict["train"]
     _, loader = create_loader(split, img_size=imgsz, batch_size=batch_size,
-                              workers=workers, single_cls=single_cls, rect=rect,
-                              stride=stride)
+                              workers=workers, single_cls=single_cls,
+                              rect=rect and det.model is not None, stride=stride)
     if coco91 is None:  # auto: coco remap when the dataset looks like COCO
         coco91 = "coco" in str(data_dict.get("yaml_file", "")).lower()
     save_txt_dir = None

@@ -3,16 +3,19 @@ raw head maps -> decode + NMS -> padded ``Detections`` -> boxes on the source
 image, annotated and saved.
 
 The port of ``yolov5_tpu/infer.py``: ``Detector`` (serving from the raw
-maps, the decoded forward that validation uses, test-time augmentation),
-``Ensemble``, ``annotate`` and ``save_one_box``, and ``run``, what the
-detect CLI calls. On a CUDA device the forward's stem runs kernel K2 and the
-suppression kernel K1; the other convolutions run through ``F.conv2d``.
-Annotation draws with numpy (``utils/font.py`` for the labels), so it needs
-no OpenCV.
+maps, the decoded forward that validation uses, test-time augmentation, and
+the exported backends: ``.onnx`` through the port's ONNX runtime on the
+device, OpenCV DNN, a KServe v2 server, the JAX package's TensorFlow
+exports), ``Ensemble``, ``annotate`` and ``save_one_box``, and ``run``, what
+the detect CLI calls. On a CUDA device the forward's stem runs kernel K2 and
+the suppression kernel K1 (K1 after every backend); the other convolutions
+run through ``F.conv2d``. Annotation draws with numpy (``utils/font.py`` for
+the labels), so it needs no OpenCV.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -111,18 +114,30 @@ def _class_filter(classes, nc):
 class Detector:
     """Weights in, detections out.
 
-    ``weights`` as ``load_fused`` takes them (BN is folded at load); several
-    weights make an ``Ensemble``: see ``ensemble``. ``half`` runs the model in
-    bfloat16. It runs on the card unless ``device`` says otherwise
-    (``device="cpu"``), and raises where no card is present."""
+    ``weights`` as ``load_fused`` takes them (BN is folded at load), or an
+    exported model: a ``.onnx`` file (the port's ONNX runtime on ``device``,
+    or OpenCV's DNN module with ``dnn``), ``triton+http(s)://host:port/model``
+    (a KServe v2 server), or the JAX package's ``_saved_model`` / ``.pb`` /
+    ``.tflite`` exports (TensorFlow). An exported model decodes in its graph:
+    ``forward`` gives its predictions on ``device``, ``__call__`` adds the NMS
+    (K1 on the card), ``model`` is None and names, classes and size come from
+    the file's metadata. Several weights make an ``Ensemble``: see
+    ``ensemble``. ``half`` runs the model in bfloat16. It runs on the card
+    unless ``device`` says otherwise (``device="cpu"``), and raises where no
+    card is present."""
 
     def __init__(self, weights=None, cfg="yolov5s", imgsz=640, half=False,
-                 device="cuda", seed=0):
+                 device="cuda", seed=0, dnn=False):
         self.device = resolve_device(device, "Detector")
         self.dtype = torch.bfloat16 if half else torch.float32
         if isinstance(weights, (list, tuple)):
             raise ValueError("Detector: several weights make an Ensemble; build it "
                              "with yolov5_tpu_torch.infer.ensemble(weights, ...)")
+        w = "" if weights is None or isinstance(weights, dict) else str(weights)
+        if w.endswith(EXPORTED) or w.startswith(REMOTE):
+            self._init_exported(w, imgsz, dnn)
+            return
+        self.backend = "torch"
         model, names = load_fused(weights, cfg, seed, DetectionModel, "Detector")
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
@@ -133,14 +148,37 @@ class Detector:
         self.anchors = tuple(torch.tensor(a, dtype=torch.float32, device=self.device)
                              for a in model.anchors)
 
-    def _to_input(self, images_uint8) -> torch.Tensor:
-        """(bs, H, W, 3) uint8 -> (bs, 3, H, W) channels_last in the working
-        dtype: cast, then divide by 255 in that dtype."""
+    def _init_exported(self, w, imgsz, dnn):
+        """An exported model as the decoded forward (the reference's
+        DetectMultiBackend role, models/common.py:456-814; the JAX package's
+        ``Detector._init_*_backend``). A backend whose library is missing
+        raises ImportError naming it; none falls back to another."""
+        if w.startswith(REMOTE):
+            self.backend, fwd, meta = _remote_backend(w)
+        elif w.endswith(".onnx"):
+            self.backend, fwd, meta = _onnx_backend(w, self.device, dnn)
+        else:
+            self.backend, fwd, meta = _tf_backend(w, imgsz)
+        self.model = None
+        self.dtype = torch.float32
+        self.names = {int(k): v for k, v in (meta.get("names") or {}).items()}
+        self.nc = int(meta.get("nc", max(self.names, default=79) + 1))
+        self.imgsz = int(meta.get("imgsz", imgsz))
+        self.stride = tuple(int(s) for s in meta.get("stride", (32,)))
+        self.anchors = None
+        self._exported = fwd
+
+    def _images(self, images_uint8) -> torch.Tensor:
         images = torch.as_tensor(images_uint8)
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"Detector: need (bs, H, W, 3) uint8 images, got "
                              f"{tuple(images.shape)} {images.dtype}")
-        images = images.to(self.device, non_blocking=True).contiguous()
+        return images
+
+    def _to_input(self, images_uint8) -> torch.Tensor:
+        """(bs, H, W, 3) uint8 -> (bs, 3, H, W) channels_last in the working
+        dtype: cast, then divide by 255 in that dtype."""
+        images = self._images(images_uint8).to(self.device, non_blocking=True).contiguous()
         x = images.permute(0, 3, 1, 2)  # NHWC storage = channels_last
         return x.to(self.dtype) / 255.0
 
@@ -150,12 +188,16 @@ class Detector:
     @torch.inference_mode()
     def forward_maps(self, images_uint8):
         """The raw head maps [(bs, ny, nx, na, no)] in the working dtype."""
+        if self.model is None:
+            raise ValueError(f"Detector: the {self.backend} backend gives no raw maps")
         return self.model(self._to_input(images_uint8))
 
     @torch.inference_mode()
     def forward(self, images_uint8) -> torch.Tensor:
         """Decoded predictions (bs, N, 5 + nc) in float32: xywh in pixels,
         objectness and class probabilities."""
+        if self.model is None:
+            return self._exported(self._images(images_uint8)).to(self.device)
         return self._decode(self.model(self._to_input(images_uint8)))
 
     @torch.inference_mode()
@@ -163,6 +205,8 @@ class Detector:
         """Decoded predictions of the test-time augmentation passes
         (TTA_PASSES), each de-scaled (and un-flipped) back to the input
         frame, concatenated along N."""
+        if self.model is None:
+            raise ValueError(f"TTA is not supported on the {self.backend} backend")
         x0 = self._to_input(images_uint8)
         h, w = x0.shape[2:]
         gs = max(self.stride)
@@ -188,13 +232,14 @@ class Detector:
                  augment=False):
         """images: (bs, s, s, 3) uint8 RGB (letterboxed), numpy or tensor.
         Returns padded ``Detections`` on the model's device: from the raw
-        maps, or with ``augment`` from the decoded TTA predictions."""
+        maps, or with ``augment`` from the decoded TTA predictions, or from
+        an exported model's decoded predictions."""
         class_filter = _class_filter(classes, self.nc)
-        if augment:
+        if augment or self.model is None:  # an exported model's TTA raises
             return non_max_suppression(
-                self.forward_tta(images_uint8), conf_thres=conf_thres,
-                iou_thres=iou_thres, max_det=max_det, agnostic=agnostic,
-                class_filter=class_filter, max_nms=max_nms)
+                self.forward_tta(images_uint8) if augment else self.forward(images_uint8),
+                conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                agnostic=agnostic, class_filter=class_filter, max_nms=max_nms)
         maps = self.model(self._to_input(images_uint8))
         return non_max_suppression_from_maps(
             maps, self.anchors, self.stride, conf_thres=conf_thres,
@@ -206,6 +251,137 @@ class Detector:
         self(np.zeros((batch_size, self.imgsz, self.imgsz, 3), np.uint8))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+# exported models (the reference's DetectMultiBackend suffixes) and the remote scheme
+EXPORTED = ("_saved_model", ".tflite", ".pb", ".onnx")
+REMOTE = ("triton+http://", "triton+https://")
+
+
+def export_size(det, imgsz, weights):
+    """The image size an exported model takes: its export size, with a
+    warning where ``imgsz`` asks for another (a fixed graph takes no other)."""
+    if imgsz != det.imgsz:
+        print(f"WARNING: --imgsz {imgsz} does not match the export size {det.imgsz} of "
+              f"{weights}; using {det.imgsz}")
+    return det.imgsz
+
+
+def _meta_values(props):
+    """An .onnx file's metadata_props, each value JSON where it parses."""
+    meta = {}
+    for k, v in props.items():
+        try:
+            meta[k] = json.loads(v)
+        except (json.JSONDecodeError, TypeError):
+            meta[k] = v
+    return meta
+
+
+def _onnx_backend(w, device, dnn):
+    """(backend, forward, meta) of an .onnx file: the port's ONNX runtime on
+    ``device`` (initializers uploaded once), or with ``dnn`` OpenCV's DNN
+    module on the host (the reference's --dnn, models/common.py:515-517)."""
+    from yolov5_tpu_torch.onnx import proto
+
+    buf = Path(w).read_bytes()
+    meta = _meta_values(proto.parse_model(buf).metadata)
+    if dnn:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(f"Detector({w!r}, dnn=True): OpenCV (cv2) is not installed; "
+                              "its DNN module runs --dnn") from e
+        net = cv2.dnn.readNetFromONNX(w)
+
+        def fwd(images):  # the export's signature: uint8 NHWC in, decoded out
+            net.setInput(images.cpu().numpy())
+            return torch.from_numpy(np.ascontiguousarray(net.forward()))
+
+        return "onnx-dnn", fwd, meta
+    from yolov5_tpu_torch.onnx.runtime import Runtime
+
+    rt = Runtime(buf, device=device)
+    return "onnx", lambda images: rt(images)[0], meta
+
+
+def _remote_backend(w):
+    """(backend, forward, meta) of a KServe / Triton v2 model
+    (``triton+http://host:port/model``; the reference's TritonRemoteModel,
+    utils/triton.py:11-78): the server's graph must give decoded (bs, N, no)
+    predictions, as the exports do. Names and nc from its metadata's
+    parameters."""
+    from yolov5_tpu_torch.remote import KServeV2Client
+
+    client = KServeV2Client(w)
+    params = client.metadata.get("parameters") or {}
+    names = params.get("names")
+    meta = {"names": names if isinstance(names, dict) else {}}
+    if "nc" in params:
+        meta["nc"] = params["nc"]
+
+    def fwd(images):
+        return torch.from_numpy(client.infer(images.cpu().numpy())).float()
+
+    return "triton", fwd, meta
+
+
+def _tf_backend(w, imgsz):
+    """(backend, forward, meta) of the JAX package's TensorFlow exports
+    (SavedModel directory, frozen ``.pb``, ``.tflite``; reference
+    models/common.py:545-561,676-712), run by TensorFlow on the host."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise ImportError(f"Detector({w!r}): TensorFlow is not installed; it runs "
+                          "_saved_model, .pb and .tflite exports") from e
+    meta_path = Path(w) / "yolov5_tpu_meta.json" if w.endswith("_saved_model") \
+        else Path(w + ".json")
+    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+    if w.endswith("_saved_model"):
+        mod = tf.saved_model.load(w)
+
+        def fwd(images):
+            return _from_tf(mod.f(tf.constant(images.cpu().numpy())))
+
+        return "saved_model", fwd, meta
+    if w.endswith(".pb"):
+        from yolov5_tpu_torch.export import gd_outputs
+
+        gd = tf.compat.v1.GraphDef()
+        gd.ParseFromString(Path(w).read_bytes())
+        wrapped = tf.compat.v1.wrap_function(
+            lambda: tf.compat.v1.import_graph_def(gd, name=""), [])
+        inputs = [n.name + ":0" for n in gd.node if n.op == "Placeholder"]
+        frozen = wrapped.prune(
+            tf.nest.map_structure(wrapped.graph.as_graph_element, inputs[0]),
+            tf.nest.map_structure(wrapped.graph.as_graph_element, gd_outputs(gd)))
+
+        def fwd(images):
+            out = frozen(tf.constant(images.cpu().numpy()))
+            return _from_tf(out[0] if isinstance(out, (list, tuple)) else out)
+
+        return "pb", fwd, meta
+    interp = tf.lite.Interpreter(model_path=w)
+    interp.allocate_tensors()
+    inp, outd = interp.get_input_details()[0], interp.get_output_details()[0]
+    # int8 exports carry boxes divided by imgsz (the JAX export's
+    # normalize_boxes); scale them back as the reference does (common.py:707)
+    box_scale = float(meta.get("imgsz", imgsz)) if meta.get("normalized") else 1.0
+
+    def fwd(images):
+        interp.set_tensor(inp["index"], images.cpu().numpy())
+        interp.invoke()
+        pred = np.asarray(interp.get_tensor(outd["index"]), np.float32)
+        if box_scale != 1.0:
+            pred = np.concatenate([pred[..., :4] * box_scale, pred[..., 4:]], -1)
+        return torch.from_numpy(pred)
+
+    return "tflite", fwd, meta
+
+
+def _from_tf(t):
+    return torch.from_numpy(np.array(t, np.float32))
 
 
 class Ensemble:
@@ -335,10 +511,6 @@ def save_one_box(box, im0, path, gain=1.02, pad=10):
 # The detect run
 # ---------------------------------------------------------------------------
 
-# weights the JAX package runs through exported backends (ROADMAP item 9)
-_EXPORTED = ("_saved_model", ".tflite", ".pb", ".onnx")
-
-
 def _source_iter(source, imgsz, vid_stride):
     s = str(source)
     if s.startswith("screen"):
@@ -408,18 +580,15 @@ def run(weights=None, source="", cfg="yolov5s", imgsz=640, conf_thres=0.25,
     [x1, y1, x2, y2, conf, cls] on the source image), one per image of
     every batch (a short last batch is padded by repeating its last image).
 
-    ``weights``: None or "" (seeded random), a .pt or .ckpt path, or a
-    state_dict, as ``Detector`` takes them. Runs on ``device`` (default the
-    card; raises where there is none)."""
-    w = str(weights or "")
-    if dnn or w.endswith(_EXPORTED) or w.startswith(("triton+http://", "triton+https://")):
-        raise NotImplementedError(
-            f"detect: {'--dnn' if dnn else w}: exported backends (ONNX, OpenCV DNN, TF, "
-            "remote) are not ported yet (ROADMAP Open items 1, item 9)")
+    ``weights``: None or "" (seeded random), a .pt or .ckpt path, a
+    state_dict, or an exported model (.onnx, with ``dnn`` through OpenCV;
+    ``triton+http://``; the JAX package's TensorFlow exports), as
+    ``Detector`` takes them. Runs on ``device`` (default the card; raises
+    where there is none)."""
     save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
     (save_dir / "labels").mkdir(exist_ok=True)
     det = Detector(weights if isinstance(weights, dict) else (weights or None), cfg=cfg,
-                   imgsz=imgsz, half=half, device=device)
+                   imgsz=imgsz, half=half, device=device, dnn=dnn)
     if data:  # class names from a dataset yaml (reference --data role)
         import yaml
 
@@ -427,6 +596,8 @@ def run(weights=None, source="", cfg="yolov5s", imgsz=640, conf_thres=0.25,
         if names:
             det.names = {int(k): v for k, v in (names.items()
                          if isinstance(names, dict) else enumerate(names))}
+    if det.model is None:
+        imgsz = export_size(det, imgsz, weights)
     det.warmup(batch_size)
     batches = _read_ahead(_source_iter(source, imgsz, vid_stride), batch_size,
                           pin=det.device.type == "cuda")

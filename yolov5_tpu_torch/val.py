@@ -18,7 +18,9 @@ def parse_opt(argv=None):
     p = argparse.ArgumentParser(prog="python -m yolov5_tpu_torch.val")
     p.add_argument("--data", required=True)
     p.add_argument("--weights", default=None,
-                   help=".ckpt or .pt weights (default: seeded random weights)")
+                   help=".ckpt or .pt weights, or an exported model (.onnx, "
+                        "triton+http://host:port/model, the JAX package's TF exports); "
+                        "default: seeded random weights")
     p.add_argument("--cfg", default="yolov5s")
     p.add_argument("--imgsz", "--img", type=int, default=640)
     p.add_argument("--batch-size", type=int, default=32)
@@ -56,6 +58,8 @@ def parse_opt(argv=None):
                    help="match predictions in original image coordinates "
                         "(reference val.py behavior); --no-native-space "
                         "matches in letterbox space")
+    p.add_argument("--dnn", action="store_true",
+                   help="run .onnx weights via OpenCV DNN instead of the port's ONNX runtime")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     return p.parse_args(argv)
 
@@ -68,7 +72,7 @@ def main(argv=None):
         data=opt.data, weights=opt.weights, cfg=opt.cfg,
         max_det=opt.max_det, single_cls=opt.single_cls, workers=opt.workers,
         half=opt.half, rect=opt.rect, native_space=opt.native_space,
-        verbose=opt.verbose, device=opt.device,
+        verbose=opt.verbose, device=opt.device, dnn=opt.dnn,
     )
     if opt.task == "speed":
         results = run_speed(batch_size=opt.batch_size, imgsz=opt.imgsz, **common)
