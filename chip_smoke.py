@@ -2,10 +2,12 @@
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
 training, the detect CLI's run, the HTTP service, segmentation predict,
 segmentation training and validation, classification, every config of the
-model zoo, and export with the exported backends.
+model zoo, export with the exported backends, and the benchmark and CI entry
+points.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --zoo-only   # phases 1, 2 and 19 alone
+    python3 chip_smoke.py --bench-only # phases 1, 2 and 21 alone
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
@@ -170,9 +172,29 @@ Phases, one line each:
      train step and one step at it with its peak memory beside the limit,
      model_info; the phase's wall time. K2 is counted on (b)-(e) too, and
      must launch nowhere: the exported graph holds the plain stem.
+ 21. bench (run last): (a) ``yolov5_tpu_torch.bench.main()`` in this
+     process at its defaults (yolov5s 640 px b32 bf16 on the card): its last
+     line must have the root bench.py's keys, the card's name from
+     nvidia-smi, a positive value, and K1 and K2 launches equal to the
+     counters' (both > 0); (b) K2 at the bench's b32 x 640² bf16 stem (within
+     one bf16 ulp of its plain version) and K1 at its serve call's b32 x 2048
+     candidates, max_det 300 (masks equal), each beside its bound, its plain
+     version and (K2) cuDNN, and K2 beside phase 6's reading and the spread
+     of the earlier readings in PERF.md, printed, not gated; (c) ``benchmarks`` on phase 13's calibrated
+     weights (fused .ckpt) at 640 px: ckpt, pt2 and onnx exported, each
+     passing its parity gate; then on phase 11's best.ckpt with the val
+     set and --hard-fail HARD_FAIL: one val row per format Detector opens;
+     (d) ``export --include pt2 --nms`` at b32 loaded on the card with
+     torch.export.load alone: valid counts equal to the port's
+     non_max_suppression (K1) at the export's settings on the same forward
+     exported without it, every box within 1e-3 px, classes int32, no
+     kernel launched by the graph; (e) ``ci_smoke --imgsz 96`` on the card,
+     CI SMOKE PASSED, both kernels launched; (f) the phase's wall time.
 Then one JSON line with each kernel's launches (in all, and per main-path
 call), error, times, bound and yardstick (and under "zoo" phase 19's, under
-"export" phase 20's numbers and K1's launches by path), and last
+"export" phase 20's numbers and K1's launches by path, under "bench" phase
+21's readings at the bench's shapes; and at the top level under "bench" the
+bench's line and the benchmarks rows), and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -3055,6 +3077,243 @@ def phase_export_times(dev, det, onnx_path, ref_det, weights, images, smi):
             "autobatch": bs, "autobatch_step_ms": step_ms, "autobatch_peak_gib": peak / 2 ** 30}
 
 
+# phase 21: bench.main at its defaults (yolov5s, 640 px, b32, bf16, k 20, the
+# card), and ci_smoke at 96 px
+BENCH_KW = {}
+CI_IMGSZ = 96
+# K2 through its wrapper at b32 x 640² bf16 in the earlier runs of phase 6
+# (PERF.md §6), which (b) prints beside its own reading
+K2_SPREAD_MS = (0.1887, 0.2157)
+# the mAP50-95 floor of (c)'s run on phase 11's best.ckpt: random weights
+# score 0 on the val set, phase 11's 12 steps score above it (0.00015 to
+# 0.0005 in phase 20 (c) and here, PERF.md), so the floor asks each format
+# for true positives
+HARD_FAIL = 0.0
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extras"}
+
+
+def bench_trained(dev, data, root):
+    """Phase 11's training run alone (yolov5s 640 b32 bf16, device
+    augmentation and cache, 3 epochs of 4 steps), for --bench-only: its
+    best.ckpt."""
+    from yolov5_tpu_torch.train.run import run
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, save_dir = run(data=str(data), cfg="yolov5s", hyp="scratch-low",
+                             epochs=TRAIN_EPOCHS, batch_size=BATCH, imgsz=IMGSZ, device_aug=True,
+                             cache="device", device=dev, workers=4,
+                             project=str(Path(root) / "runs"), name="bench", exist_ok=True)
+    return save_dir / "best.ckpt"
+
+
+def _rows_line(rows):
+    return "; ".join(
+        f"{r['format']} " + (r["note"] if "note" in r else
+                             f"{'ok' if r['ok'] else 'FAILED'} {r['map50_95']:.5f} mAP50-95"
+                             if "map50_95" in r else
+                             f"{'ok' if r['ok'] else 'FAILED'} {r['ms']:.3f} ms, max diff "
+                             f"{r['max_abs_diff']:.3g}, corr {r['corr']:.6f}")
+        for r in rows if not r.get("note", "").startswith("unavailable: needs a torch"))
+
+
+def phase_bench(dev, root, data, weights, trained, smi, stem_ms=None):
+    """Phase 21 (a)-(f): ``bench.main`` at its defaults (its line, K1 and K2
+    launched), K1 and K2 at the bench's shapes, ``benchmarks`` on the
+    calibrated weights and on phase 11's best.ckpt with --data and a
+    --hard-fail floor, the pt2 graph with the NMS against the port's NMS,
+    and ``ci_smoke`` on the card. Returns the launches of the counted paths
+    and the phase's numbers."""
+    import torch
+
+    from yolov5_tpu_torch import bench, benchmarks, ci_smoke, infer
+    from yolov5_tpu_torch import export as export_mod
+    from yolov5_tpu_torch.ops.nms import non_max_suppression
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+
+    t_phase = time.perf_counter()
+    torch_tf32_default()
+    launches = {}
+
+    def counted(path, fn):
+        """fn() with the counters set to 0 just before and read just after;
+        what it printed, captured."""
+        stem_conv.launches = greedy_nms.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = fn()
+        launches[path] = {"greedy_nms": greedy_nms.launches, "stem_conv": stem_conv.launches}
+        return res, out.getvalue()
+
+    # (a) the bench's line
+    res, out = counted("bench", lambda: bench.main(**BENCH_KW))
+    last = out.strip().splitlines()[-1]
+    line = json.loads(last)
+    ex = line.get("extras", {})
+    card = smi.rsplit(",", 1)[0].strip()
+    print(f"bench (a): {last}")
+    if set(line) != BENCH_KEYS or line != json.loads(json.dumps(res)) \
+            or not line["value"] > 0 or ex["device"]["platform"] != "gpu" \
+            or ex["device"]["name"] != card or ex["kernels"] != launches["bench"] \
+            or min(launches["bench"].values()) < 1:
+        raise AssertionError(f"bench (a): line or launches wrong: {launches['bench']} | {last}")
+    print(f"bench (a): {line['metric']} {line['value']:.1f} img/s ({ex['device_ms_per_img']:.4f} "
+          f"ms/img on the card, MFU {ex['mfu_pct']}%); from numpy "
+          f"{ex['with_dispatch_ms_per_img']:.4f} ms/img; serve + NMS "
+          f"{ex['serve_e2e_nms_ms_per_img']:.4f} ms/img; NMS {ex['nms_ms_per_img_p50']:.4f}, "
+          f"eval cap {ex['nms_eval30k_ms_per_img_p50']:.4f} ms/img; train "
+          f"{ex['train_ms_per_img'] * ex['batch']:.3f} ms/step ({ex['train_img_s']:.1f} img/s); "
+          f"launches K1 {launches['bench']['greedy_nms']}, K2 {launches['bench']['stem_conv']} "
+          f"| {smi}")
+
+    # (b) K2 and K1 at the bench's shapes, beside their plain versions
+    with uncounted():
+        det = infer.Detector(None, cfg="yolov5s", imgsz=IMGSZ, half=True, device=dev)
+        images = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)).to(dev)
+        x = images.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+        stem = det.model.model[0]
+        w, b = stem.conv.weight, stem.conv.bias
+        torch_tf32_off()  # the plain stem as an f32 reference, as phase 3
+        got, ref = stem_conv(x, w, b).float(), stem_conv_plain(x, w, b).float()
+        k2_err = (got - ref).abs()
+        k2_bad = int((k2_err > bf16_ulp(ref) + 1e-5).sum())
+        k2_err = k2_err.max().item()
+        torch_tf32_default()
+        k2 = cuda_ms(lambda: stem_conv(x, w, b), iters=50)
+        k2_alone = cuda_ms(stem_kernel_call(x, w, b), iters=50)
+        k2_plain = cuda_ms(lambda: stem_conv_plain(x, w, b), iters=50)
+        k2_lib = cuda_ms(lambda: torch.nn.functional.silu(torch.nn.functional.conv2d(
+            x, w, b, stride=2, padding=2)), iters=50)
+        k2_bound, k2_by = stem_bound_ms(x, w.shape[0])
+        captured = {}
+
+        def capture(boxes, scores, thres, max_det):
+            captured.update(args=(boxes, scores, thres, max_det))
+            return greedy_nms(boxes, scores, thres, max_det)
+
+        with routed(nms=capture):
+            det(images, conf_thres=0.25, iou_thres=0.45, max_det=300, max_nms=2048)
+        args = captured["args"]
+        k1_equal = torch.equal(greedy_nms(*args), greedy_nms_plain(*args))
+        k1 = cuda_ms(lambda: greedy_nms(*args), iters=20)
+        k1_plain = cuda_ms(lambda: greedy_nms_plain(*args), iters=2, warmup=1)
+        k1_bound, k1_by, n_iou = nms_bound_ms(*args)
+    print(f"bench (b): K2 b{BATCH}x{IMGSZ}² bf16 c2={w.shape[0]} (the bench's stem): {k2:.4f} ms "
+          f"through its wrapper, {k2_alone:.4f} ms alone; phase 6 "
+          f"{'not run' if stem_ms is None else f'{stem_ms:.4f} ms'}; earlier runs "
+          f"{K2_SPREAD_MS[0]}-{K2_SPREAD_MS[1]} ms; bound {k2_bound:.4f} ms ({k2_by}); plain "
+          f"{k2_plain:.3f} ms; cuDNN bf16 conv + SiLU {k2_lib:.3f} ms; against its plain "
+          f"version (f32, TF32 off) max abs err {k2_err:.3g}, {k2_bad} elements over one bf16 "
+          f"ulp + 1e-5 | {smi}")
+    print(f"bench (b): K1 b{BATCH}x{args[0].shape[1]} IoU 0.45 max_det 300 (the bench's serve "
+          f"call): {k1:.4f} ms; bound {k1_bound:.5f} ms ({k1_by}: {n_iou} IoUs); plain "
+          f"{k1_plain:.3f} ms; mask {'equal to' if k1_equal else 'DIFFERS from'} its plain "
+          f"version's | {smi}")
+    if k2_bad or not k1_equal:
+        raise AssertionError(f"bench (b): K2 {k2_bad} elements over one ulp, K1 equal "
+                             f"{k1_equal}")
+
+    # (c) benchmarks on the calibrated weights, then on phase 11's best.ckpt
+    # with the val set and the mAP floor; f32 without TF32, as phase 20: in
+    # TF32 the exported graphs' plain stem and K2 round apart, and the
+    # calibrated random model amplifies that past the gate's 3 px
+    torch_tf32_off()
+    out_dir = Path(root) / "benchmarks"
+    with contextlib.redirect_stdout(io.StringIO()):
+        src = export_mod.run(weights=weights, cfg="yolov5s", imgsz=IMGSZ, include=("ckpt",),
+                             output_dir=str(out_dir), name="calibrated", device=dev)["ckpt"]
+    rows, _ = counted("benchmarks", lambda: benchmarks.run(
+        weights=str(src), cfg="yolov5s", imgsz=IMGSZ, output_dir=str(out_dir / "calibrated"),
+        device=dev))
+    rows_t, out_t = counted("benchmarks_val", lambda: benchmarks.run(
+        weights=str(trained), cfg="yolov5s", imgsz=IMGSZ, data=str(data), hard_fail=HARD_FAIL,
+        output_dir=str(out_dir / "trained"), device=dev))
+    for what, rs in (("calibrated", rows), ("phase 11's best.ckpt", rows_t)):
+        print(f"bench (c): benchmarks {what} {IMGSZ}px f32 (TF32 off): {_rows_line(rs)} | "
+              f"{smi}")
+    print(f"bench (c): {out_t.strip().splitlines()[-1]}; launches {launches['benchmarks']}, "
+          f"with --data {launches['benchmarks_val']}")
+    need = {"torch (native)", "ckpt (fused)", "pt2", "onnx (port runtime)"}
+    for rs in (rows, rows_t):
+        passed = {r["format"] for r in rs if r["ok"]}
+        bad = [r["format"] for r in rs if not r["ok"] and "unavailable" not in r.get("note", "")]
+        if not need <= passed or bad:
+            raise AssertionError(f"bench (c): formats failed {bad}, passed {passed}")
+    if launches["benchmarks"]["stem_conv"] < 1 or min(launches["benchmarks_val"].values()) < 1:
+        raise AssertionError(f"bench (c): launches {launches}")
+    torch_tf32_default()
+
+    # (d) the pt2 graph with the NMS, on the card, against the port's NMS
+    # (K1) of the same forward exported without it
+    paths, _, batch = smoke_sources(root)
+    smoke = torch.from_numpy(batch).to(dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pt2 = {nms: export_mod.run(weights=str(src), imgsz=IMGSZ, batch_size=len(batch),
+                                   include=("pt2",), with_nms=nms, output_dir=str(out_dir),
+                                   name=f"nms{int(nms)}", device=dev)["pt2"]
+               for nms in (True, False)}
+    graph = benchmarks.load_pt2(pt2[True], dev)
+    got, _ = counted("pt2_nms", lambda: graph(smoke))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph(smoke)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    with uncounted():
+        ref = non_max_suppression(benchmarks.load_pt2(pt2[False], dev)(smoke),
+                                  **export_mod.EXPORT_NMS)
+
+    def rows_of(boxes, scores, classes, valid):
+        v = valid.cpu().numpy()
+        r = torch.cat([boxes, scores[..., None], classes[..., None].float()], -1).cpu().numpy()
+        return [r[i][v[i]] for i in range(len(v))]
+
+    a, b_ = rows_of(*got), rows_of(ref.boxes, ref.scores, ref.classes, ref.valid)
+    same = [len(r) for r in a] == [len(r) for r in b_]
+    hit, total, score_diff, box_err = match_detections(a, b_, px=1e-3)
+    print(f"bench (d): export --include pt2 --nms b{len(batch)} on the card ({len(paths)} smoke "
+          f"sources): {total} detections, counts {'equal' if same else 'DIFFER'} to the port's "
+          f"non_max_suppression (K1) at conf 0.25, IoU 0.45, max_det 100, cap 1024 on the "
+          f"same forward; {hit}/{total} within 1e-3 px (max box {box_err:.3g} px, score "
+          f"{score_diff:.3g}); dtypes {[str(t.dtype) for t in got]}; the graph {graph_ms:.1f} "
+          f"ms a call; launches K1 {launches['pt2_nms']['greedy_nms']}, K2 "
+          f"{launches['pt2_nms']['stem_conv']} | {smi}")
+    if not same or hit < total or got[2].dtype != torch.int32 or any(
+            launches["pt2_nms"].values()):
+        raise AssertionError("bench (d): the pt2 --nms graph differs from the port's NMS")
+
+    # (e) the CI matrix on the card
+    t0 = time.perf_counter()
+    _, out_ci = counted("ci_smoke", lambda: ci_smoke.main(["--imgsz", str(CI_IMGSZ)]))
+    ci_s = time.perf_counter() - t0
+    steps = [ln for ln in out_ci.splitlines() if ln.startswith("[")]
+    print(f"bench (e): ci_smoke --imgsz {CI_IMGSZ} in {ci_s:.1f} s: {' | '.join(steps)}; "
+          f"{out_ci.strip().splitlines()[-1]}; launches {launches['ci_smoke']}")
+    if out_ci.strip().splitlines()[-1] != "CI SMOKE PASSED" \
+            or min(launches["ci_smoke"].values()) < 1:
+        raise AssertionError(f"bench (e): ci_smoke: {out_ci[-2000:]}")
+
+    # (f)
+    wall = time.perf_counter() - t_phase
+    print(f"bench: phase 21 in {wall:.1f} s")
+    counted_paths = ("bench", "benchmarks", "benchmarks_val", "ci_smoke")
+    total_launches = {k: sum(launches[p][k] for p in counted_paths)
+                      for k in ("greedy_nms", "stem_conv")}
+    numbers = {
+        "line": line, "benchmarks": rows, "benchmarks_val": rows_t,
+        "launches_by_path": launches, "wall_s": wall, "ci_smoke_s": ci_s,
+        "pt2_nms_graph_ms": graph_ms,
+        "greedy_nms": dict(shape=f"b{BATCH}x{args[0].shape[1]}, IoU 0.45, max_det 300", ms=k1,
+                           plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+                           library_ms=None, launches=launches["bench"]["greedy_nms"]),
+        "stem_conv": dict(shape=f"b{BATCH}x{IMGSZ}² bf16", ms=k2, alone_ms=k2_alone,
+                          plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
+                          library_ms=k2_lib, launches=launches["bench"]["stem_conv"]),
+    }
+    return total_launches, numbers
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -3097,6 +3356,10 @@ def main(argv=None):
                         help="phases 1, 2 and 19 alone (on the val and train data that 19 "
                              "needs), and no result lines: a copy of this script in each of "
                              "two checkouts compares their phase 19 readings in one call")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="phases 1, 2 and 21 alone (on the data, the calibrated weights "
+                             "and phase 11's training run that 21 needs), then its numbers as "
+                             "one JSON line and no result line")
     opt = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -3108,6 +3371,14 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
             phase_val_data(root)
             phase_zoo(dev, root, phase_train_data(root), smi)
+        return 0
+    if opt.bench_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as root:
+            data = phase_val_data(root)
+            trained = bench_trained(dev, phase_train_data(root), root)
+            weights = calibrated_weights("yolov5s", 0, smoke_sources(root)[2][:4], dev)
+            _, bench_numbers = phase_bench(dev, root, data, weights, trained, smi)
+        print(json.dumps({"bench": bench_numbers}))
         return 0
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
@@ -3138,25 +3409,29 @@ def main(argv=None):
         zoo_launches, zoo_times = phase_zoo(dev, root, train_data, smi)
         export_launches, export_numbers = phase_export(dev, root, data, weights, trained,
                                                        smi)
+        bench_launches, bench_numbers = phase_bench(dev, root, data, weights, trained, smi,
+                                                    stem_ms=times["stem_conv"]["ms"])
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
                 + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
-                + export_launches[k] for k, n in launches.items()}
+                + export_launches[k] + bench_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
          "launches_per_call": per_call["greedy_nms"], "max_abs_err": nms_err,
-         **times["greedy_nms"], "zoo": zoo_times["greedy_nms"], "export": export_numbers},
+         **times["greedy_nms"], "zoo": zoo_times["greedy_nms"], "export": export_numbers,
+         "bench": bench_numbers.pop("greedy_nms")},
         {"name": "stem_conv", "route": "cuda", "source": "yolov5_tpu_torch/csrc/stem_conv.cu",
          "replaces": "yolov5_tpu/ops/stem_pallas.py:180",
          "also_replaces": "yolov5_tpu/ops/stem_pallas.py:151 (K2b, the same function in the "
                           "MXU-transposed layout)", "launches": launches["stem_conv"],
          "launches_per_call": per_call["stem_conv"], "max_abs_err": stem_err,
-         **times["stem_conv"], "zoo": zoo_times["stem_conv"]},
+         **times["stem_conv"], "zoo": zoo_times["stem_conv"],
+         "bench": bench_numbers.pop("stem_conv")},
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "bench": bench_numbers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

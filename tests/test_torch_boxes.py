@@ -34,6 +34,45 @@ def test_box_converters_and_clip(rng):
                                   np.asarray(jax_boxes.clip_boxes(jnp.asarray(b), (200, 150))))
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("xywhn2xyxy", dict(w=640, h=480, padw=12, padh=-3)),
+    ("xyxy2xywhn", dict(w=320, h=416)),
+    ("xyxy2xywhn", dict(w=320, h=416, clip=True, eps=1e-3)),
+    ("xyn2xy", dict(w=640, h=352, padw=4, padh=8)),
+])
+def test_normalized_box_converters_match_jax(rng, name, kw):
+    """The normalized converters equal the JAX package's within 1e-6."""
+    if name == "xyn2xy":
+        x = rng.uniform(-0.1, 1.1, (40, 2)).astype(np.float32)
+    elif name == "xywhn2xyxy":
+        x = np.concatenate([rng.uniform(0, 1, (40, 2)), rng.uniform(0.01, 0.5, (40, 2))],
+                           -1).astype(np.float32)
+    else:  # pixel corners, some past the image for clip
+        x = _boxes(rng, 40) * np.float32(1.2) - np.float32(10)
+    got = getattr(boxes, name)(torch.from_numpy(x), **kw).numpy()
+    ref = np.asarray(getattr(jax_boxes, name)(jnp.asarray(x), **kw))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_package_reexports_match_jax():
+    """``yolov5_tpu_torch.ops`` and ``.models`` export the names the JAX
+    package's ``ops`` and ``models`` export, each the port's function."""
+    import yolov5_tpu.models as jax_models
+    import yolov5_tpu.ops as jax_ops
+    import yolov5_tpu_torch.models as port_models
+    import yolov5_tpu_torch.ops as port_ops
+    from yolov5_tpu_torch.ops import nms
+
+    assert sorted(port_ops.__all__) == sorted(jax_ops.__all__)
+    assert sorted(port_models.__all__) == sorted(jax_models.__all__)
+    for name in port_ops.__all__:
+        assert getattr(port_ops, name) is getattr(
+            nms if name == "non_max_suppression" else boxes, name)
+    for name in port_models.__all__:
+        assert getattr(port_models, name) is getattr(yolo, name)
+
+
 def test_box_iou(rng):
     a, b = _boxes(rng, 40), _boxes(rng, 30)
     got = boxes.box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()

@@ -88,6 +88,21 @@ def test_classify_weights_round_trip():
     assert set(_flat(jm.variables)) == set(ref)
 
 
+def test_fused_classifier_defaults_to_the_card():
+    """Without ``device`` the BN-folded classifier goes to the card, so on a
+    machine without one it raises rather than staying on the CPU; on the CPU
+    when asked."""
+    from yolov5_tpu_torch.train.run_classify import fused_classifier
+
+    sd = ClassificationModel("yolov5n", nc=NC).state_dict()
+    model = fused_classifier(sd, "yolov5n", NC, device="cpu")
+    assert next(model.parameters()).device.type == "cpu" and not model.training
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fused_classifier(sd, "yolov5n", NC)
+
+
 def test_classification_model_structure():
     """The JAX package's cut: layers 0-9 kept (SPPF included), Classify
     appended at 10; build_model routes the task."""

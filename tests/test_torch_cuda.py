@@ -669,3 +669,20 @@ def test_validate_classify_through_k2(dev, tmp_path, monkeypatch):
         err = (got - ref).abs().max(1).values
         assert (err <= 1e-3 * ref.abs().max(1).values).all(), err
     assert (a["top1"], a["top5"], a["per_class"]) == (b["top1"], b["top5"], b["per_class"])
+
+
+def test_bench_on_the_card(dev, capsys):
+    """bench.main at yolov5n 64 px on the card: its last line names the card
+    (nvidia-smi's name and power limit), a positive rate, and both kernels
+    launched."""
+    from yolov5_tpu_torch import bench
+
+    res = bench.main(cfg="yolov5n", imgsz=64, batch=2, k=2, dtype="bfloat16")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(res))
+    assert line["metric"] == "yolov5n_64_bf16_images_per_sec_per_chip_b2" and line["value"] > 0
+    ex = line["extras"]
+    assert ex["device"]["platform"] == "gpu" and ex["device"]["power_limit_w"] > 0
+    assert ex["device"]["count"] == torch.cuda.device_count()
+    assert (ex["mfu_pct"] is not None) == ("H100" in ex["device"]["name"])
+    assert ex["kernels"]["greedy_nms"] > 0 and ex["kernels"]["stem_conv"] > 0

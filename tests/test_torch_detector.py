@@ -72,6 +72,38 @@ def test_detector_pt_weights_and_classes(weights_pt):
     assert set(dets.classes[dets.valid].tolist()) <= {0, 2}
 
 
+def test_detector_unfused_matches_jax(weights_pt):
+    """Detector(fuse=False) runs the eval-mode model with its BN (no K2 on
+    the stem) and gives the JAX Detector(fuse=False)'s decoded predictions
+    on the same weights within 1e-4 of their largest value; folded weights
+    refuse to run unfused."""
+    from yolov5_tpu_torch.models.weights import fuse_conv_bn
+
+    jdet = JaxDetector(str(weights_pt), cfg="yolov5n", imgsz=64, fuse=False)
+    det = Detector(str(weights_pt), cfg="yolov5n", imgsz=64, device="cpu", fuse=False)
+    assert det.fused is False and jdet.fused is False
+    assert det.model.model[0].bn is not None and not det.model.model[0].stem
+    ims = np.random.default_rng(9).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
+    ref = np.asarray(jdet._forward(jdet.variables, ims))
+    got = det.forward(ims).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+    assert Detector(str(weights_pt), cfg="yolov5n", imgsz=64, device="cpu").fused is True
+    folded = fuse_conv_bn(det.model.state_dict())
+    with pytest.raises(ValueError, match="BN-folded"):
+        Detector(folded, cfg="yolov5n", imgsz=64, device="cpu", fuse=False)
+
+
+def test_hub_load_takes_fuse():
+    """hub.load and the named factories take fuse, as the JAX hub does."""
+    from yolov5_tpu_torch import hub
+
+    det = hub.load("yolov5n", imgsz=64, fuse=False, device="cpu")
+    assert det.fused is False and det.model.model[0].bn is not None
+    assert hub.yolov5n(imgsz=64, fuse=False, device="cpu").fused is False
+    assert hub.yolov5n(imgsz=64, device="cpu").fused is True
+
+
 def test_detector_bf16_runs_and_warmup():
     det = Detector(cfg="yolov5n", imgsz=64, half=True, device="cpu")
     det.warmup(batch_size=1)

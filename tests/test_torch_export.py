@@ -15,8 +15,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_helpers import (random_detector_weights, random_state_dict, seg_cfg,
-                                small_cfg, yolov5n_cfg)
+from torch_port_helpers import (assert_same_detection_sets, random_detector_weights,
+                                random_state_dict, seg_cfg, small_cfg, yolov5n_cfg)
 from yolov5_tpu_torch import export as export_t
 from yolov5_tpu_torch.models import weights as W
 from yolov5_tpu_torch.models.yolo import (ClassificationModel, DetectionModel,
@@ -366,9 +366,10 @@ def test_fused_ckpt_cross_package(exported, tmp_path):
 
 
 def test_export_formats_and_nms(tmp_path, capsys):
-    """The format table; --nms fails for pt2 and onnx in the port (named
-    ROADMAP) as the JAX package's onnx --nms fails (no sort lowering), and
-    the other formats go on."""
+    """The format table; --nms fails for onnx in the port (named ROADMAP) as
+    the JAX package's onnx --nms fails (no sort lowering), the pt2 graph
+    holds it (as the JAX stablehlo graph does), and the other formats go
+    on."""
     from yolov5_tpu.export import run as jax_export
 
     table = {n: (suffix, ok) for n, suffix, ok, _ in export_t.export_formats()}
@@ -377,8 +378,8 @@ def test_export_formats_and_nms(tmp_path, capsys):
     arts = export_t.run(cfg="yolov5n", imgsz=64, include=("ckpt", "pt2", "onnx", "tflite"),
                         with_nms=True, output_dir=str(tmp_path), device="cpu")
     out = capsys.readouterr().out
-    assert arts["ckpt"] and arts["pt2"] is None and arts["onnx"] is None
-    assert out.count("ROADMAP") >= 3  # pt2, onnx, and the skipped tflite
+    assert arts["ckpt"] and arts["pt2"] and arts["onnx"] is None
+    assert out.count("ROADMAP") >= 2  # onnx, and the skipped tflite
     jax_arts = jax_export(cfg="yolov5n", imgsz=64, include=("onnx",), with_nms=True,
                           output_dir=str(tmp_path / "jax"))
     assert jax_arts["onnx"] is None
@@ -396,3 +397,71 @@ def test_export_cli(tmp_path, capsys):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             export_t.main(["--cfg", "yolov5n", "--imgsz", "64", "--include", "onnx",
                            "--output-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# the NMS that an --nms graph holds
+
+
+def _nms_predictions(rng, bs=2, n=3000, nc=NC):
+    """Decoded predictions whose boxes crowd around 60 centres, with most
+    scores above the export's conf 0.25: the 1024 cap and max_det 100 both
+    cut, and suppression has work to do."""
+    centres = rng.uniform(40, 600, (60, 2))
+    xy = centres[rng.integers(0, 60, (bs, n))] + rng.normal(0, 6, (bs, n, 2))
+    wh = rng.uniform(10, 60, (bs, n, 2))
+    obj = rng.uniform(0.3, 1.0, (bs, n, 1))
+    cls = rng.uniform(0.0, 1.0, (bs, n, nc))
+    return np.concatenate([xy, wh, obj, cls], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_traceable_nms_matches_port_and_jax(seed):
+    """non_max_suppression(traceable=True) at the export's settings equals
+    the port's NMS (greedy through K1's plain version) exactly, and the JAX
+    non_max_suppression(max_nms=1024) in valid counts and in boxes within
+    1e-4."""
+    from yolov5_tpu.ops.nms import non_max_suppression as jax_nms
+    from yolov5_tpu_torch.ops.nms import non_max_suppression
+
+    pred = _nms_predictions(np.random.default_rng(seed))
+    got = non_max_suppression(torch.from_numpy(pred), **export_t.EXPORT_NMS, traceable=True)
+    ref = non_max_suppression(torch.from_numpy(pred), **export_t.EXPORT_NMS)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert got.classes.dtype == torch.int32 and int(got.valid.sum()) == 200  # max_det cuts
+    jref = jax_nms(jnp.asarray(pred), **export_t.EXPORT_NMS)
+    assert_same_detection_sets(got, jref, atol=1e-4)
+
+
+def test_pt2_with_nms_loads_and_matches(tmp_path):
+    """export --include pt2 --nms: the graph, loaded with torch.export.load
+    alone, gives (boxes f32 (bs, 100, 4), scores, classes int32, valid) equal
+    to the port's NMS of the traced forward at the export's settings, and
+    to the JAX non_max_suppression(max_nms=1024) in valid counts and boxes
+    within 1e-4."""
+    from yolov5_tpu.ops.nms import non_max_suppression as jax_nms
+    from yolov5_tpu_torch.ops.nms import non_max_suppression
+
+    rng = np.random.default_rng(11)
+    sd = {k: torch.from_numpy(v) for k, v in random_detector_weights(yolov5n_cfg(NC), 3).items()}
+    for i in range(3):  # scores above conf 0.25 in most cells
+        sd[f"model.24.m.{i}.bias"] = torch.from_numpy(
+            rng.normal(1.5, 0.5, sd[f"model.24.m.{i}.bias"].shape).astype(np.float32))
+    arts = export_t.run(weights=sd, cfg=yolov5n_cfg(NC), imgsz=64, batch_size=2,
+                        include=("pt2",), with_nms=True, output_dir=str(tmp_path), name="nms",
+                        device="cpu")
+    assert json.loads((tmp_path / "nms.pt2.json").read_text())["with_nms"] is True
+    fwd, _, _, _ = export_t._build_forward(sd, yolov5n_cfg(NC), 64, 2)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+    with torch.no_grad():
+        pred = fwd(images)
+        got = torch.export.load(str(arts["pt2"])).module()(images)
+    ref = non_max_suppression(pred, **export_t.EXPORT_NMS)
+    assert [tuple(g.shape) for g in got] == [(2, 100, 4), (2, 100), (2, 100), (2, 100)]
+    assert [g.dtype for g in got] == [torch.float32, torch.float32, torch.int32, torch.bool]
+    for g, r in zip(got, (ref.boxes, ref.scores, ref.classes, ref.valid)):
+        assert torch.equal(g, r)
+    assert int(got[3].sum()) > 0
+    jref = jax_nms(jnp.asarray(pred.numpy()), **export_t.EXPORT_NMS)
+    assert_same_detection_sets(ref, jref, atol=1e-4)

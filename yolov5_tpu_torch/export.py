@@ -20,6 +20,10 @@ decoded (bs, N, 5 + nc) float32 predictions. It is traced from the
 BN-folded float32 model on the host, so the stem is the plain Conv + SiLU
 (the JAX export's ``packed_stem=False`` graph): the artifact has no device,
 and what runs it (``infer.Detector`` on ``--device``) runs it on the card.
+With ``--nms`` the pt2 graph also holds the NMS at the JAX export's settings
+(conf 0.25, IoU 0.45, max_det 100, 1024 candidates; torch ops, not kernel
+K1) and gives (boxes (bs, 100, 4) float32, scores (bs, 100), classes
+(bs, 100) int32, valid (bs, 100) bool); the ONNX graph cannot hold it.
 
     python -m yolov5_tpu_torch.export --weights best.ckpt --include ckpt pt2 onnx
 """
@@ -35,8 +39,10 @@ import torch
 from torch import nn
 
 _NO_TF = "needs a torch -> TensorFlow path, which the port lacks (ROADMAP)"
-_NO_NMS = ("--nms: the {} graph cannot hold the NMS (no sort or loop lowering; the JAX "
+_NO_NMS = ("--nms: the onnx graph cannot hold the NMS (no sort or loop lowering; the JAX "
            "package's onnx --nms fails too): see ROADMAP")
+# the NMS of an --nms graph: the JAX export's settings (yolov5_tpu/export.py)
+EXPORT_NMS = dict(conf_thres=0.25, iou_thres=0.45, max_det=100, max_nms=1024)
 
 
 def export_formats():
@@ -80,11 +86,14 @@ def try_export(fn):
 class ExportForward(nn.Module):
     """uint8 (bs, s, s, 3) RGB -> what the model gives, decoded: (bs, N, no)
     float32 predictions (with a Segment head also the (bs, hm, wm, nm)
-    prototypes; a classifier's (bs, nc) logits as they are)."""
+    prototypes; a classifier's (bs, nc) logits as they are). With
+    ``with_nms`` a detector's predictions go through the traceable NMS at
+    ``EXPORT_NMS``: (boxes, scores, classes int32, valid)."""
 
-    def __init__(self, model):
+    def __init__(self, model, with_nms=False):
         super().__init__()
         self.model = model
+        self.with_nms = with_nms
         self.decodes = hasattr(model, "anchors")
         if self.decodes:
             self.strides = [float(s) for s in model.stride]
@@ -102,21 +111,27 @@ class ExportForward(nn.Module):
         maps, proto = out if isinstance(out, tuple) else (out, None)
         anchors = [getattr(self, f"anchors_{i}") for i in range(len(self.strides))]
         pred = decode(maps, anchors, self.strides, torch.float32, nc=self.model.nc)
+        if self.with_nms:
+            from yolov5_tpu_torch.ops.nms import non_max_suppression
+
+            d = non_max_suppression(pred, **EXPORT_NMS, traceable=True)
+            return d.boxes, d.scores, d.classes, d.valid
         return pred if proto is None else (pred, proto)
 
 
-def _build_forward(weights, cfg, imgsz, batch_size, seed=0):
+def _build_forward(weights, cfg, imgsz, batch_size, seed=0, with_nms=False):
     """(forward, example input, model, names): the BN-folded float32 model
-    on the host, wrapped in ExportForward, and a zero uint8 batch.
+    on the host, wrapped in ExportForward (with the NMS for ``with_nms``),
+    and a zero uint8 batch.
 
     ``weights`` as ``infer.Detector`` takes them: None or "" (seeded random),
     a .pt or .ckpt path, or a state_dict."""
-    from yolov5_tpu_torch.infer import load_fused
+    from yolov5_tpu_torch.infer import load_model
     from yolov5_tpu_torch.models.yolo import DetectionModel
 
-    model, names = load_fused(weights or None, cfg, seed, DetectionModel, "export")
+    model, names = load_model(weights or None, cfg, seed, DetectionModel, "export")
     model = model.float().eval()
-    forward = ExportForward(model).eval()
+    forward = ExportForward(model, with_nms).eval()
     example = torch.zeros((batch_size, imgsz, imgsz, 3), dtype=torch.uint8)
     return forward, example, model, names or model.names
 
@@ -143,10 +158,9 @@ def export_ckpt(model, meta, file):
 
 
 @try_export
-def export_pt2(program, file, meta, with_nms=False):
-    """``torch.export.save`` of the traced forward, its meta beside it."""
-    if with_nms:
-        raise NotImplementedError(_NO_NMS.format("pt2"))
+def export_pt2(program, file, meta):
+    """``torch.export.save`` of the traced forward (with the NMS where it
+    was traced with it), its meta beside it."""
     file = Path(file)
     # the program carries its example batch (39 MB at b32 640 px), which
     # loading it does not need
@@ -166,7 +180,7 @@ def export_onnx(program, file, meta, with_nms=False, device="cuda"):
     from yolov5_tpu_torch.onnx.runtime import Runtime
 
     if with_nms:
-        raise NotImplementedError(_NO_NMS.format("onnx"))
+        raise NotImplementedError(_NO_NMS)
     file = Path(file)
     data = program_to_onnx(program.run_decompositions(), input_names=["images"],
                            model_name=file.stem, doc="yolov5_tpu_torch ONNX export",
@@ -213,7 +227,8 @@ def run(weights="", cfg="yolov5s", imgsz=640, batch_size=1, include=("ckpt", "pt
             print(f"skipping {fmt}: {table[fmt][1]}")
     include = [f for f in include if table[f][0]]
 
-    forward, example, model, names = _build_forward(weights, cfg, imgsz, batch_size)
+    forward, example, model, names = _build_forward(weights, cfg, imgsz, batch_size,
+                                                    with_nms=with_nms)
     stem = name or (Path(str(weights)).stem if isinstance(weights, (str, Path)) and weights
                     else str(cfg))
     out_dir = Path(output_dir or (Path(str(weights)).parent
@@ -233,7 +248,7 @@ def run(weights="", cfg="yolov5s", imgsz=640, batch_size=1, include=("ckpt", "pt
         print(f"export: traced {type(model).__name__} b{batch_size} {imgsz}px on the host "
               f"in {time.time() - t0:.1f}s")
         if "pt2" in include:
-            artifacts["pt2"] = export_pt2(program, out_dir / f"{stem}.pt2", meta, with_nms)
+            artifacts["pt2"] = export_pt2(program, out_dir / f"{stem}.pt2", meta)
         if "onnx" in include:
             artifacts["onnx"] = export_onnx(program, out_dir / f"{stem}.onnx", meta, with_nms,
                                             device=device)
@@ -249,7 +264,7 @@ def main(argv=None):
     p.add_argument("--include", nargs="+", default=["ckpt", "pt2"],
                    help=" ".join(n for n, *_ in export_formats()))
     p.add_argument("--nms", action="store_true",
-                   help="embed NMS in the graph (fails for pt2 and onnx: ROADMAP)")
+                   help="embed NMS in the pt2 graph (fails for onnx: ROADMAP)")
     p.add_argument("--int8", action="store_true",
                    help="int8 TFLite: unavailable, reported and nothing written for it")
     p.add_argument("--output-dir", default=None)

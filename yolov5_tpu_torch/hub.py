@@ -25,13 +25,15 @@ def list_models():
     return sorted(p.stem for p in CONFIG_DIR.glob("*.yaml") if p.stem != "anchors")
 
 
-def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",
+def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, fuse=True, task="detect",
          device="cuda"):
-    """A ready ``infer.Detector`` (BN folded), or for ``task="segment"`` an
-    eval-mode ``SegmentationModel`` on ``device``, or for ``task="classify"``
-    an eval-mode ``ClassificationModel``: seeded random weights for a config
-    name, BN folded from a ``.ckpt``/``.pt`` path. (The JAX package hands
-    every ``.ckpt``/``.pt`` path to its Detector, whatever the task.)"""
+    """A ready ``infer.Detector`` (BN folded unless ``fuse`` is False), or
+    for ``task="segment"`` an eval-mode ``SegmentationModel`` on ``device``,
+    or for ``task="classify"`` an eval-mode ``ClassificationModel``: seeded
+    random weights for a config name, BN folded from a ``.ckpt``/``.pt``
+    path (``fuse`` is for the Detector only, as in the JAX package). (The
+    JAX package hands every ``.ckpt``/``.pt`` path to its Detector, whatever
+    the task.)"""
     s = str(name_or_path)
     if task == "classify":
         from yolov5_tpu_torch.infer import resolve_device
@@ -45,8 +47,9 @@ def load(name_or_path="yolov5s", cfg=None, imgsz=640, half=False, task="detect",
         from yolov5_tpu_torch.infer import Detector
 
         if s.endswith((".ckpt", ".pt")):
-            return Detector(s, cfg=cfg or "yolov5s", imgsz=imgsz, half=half, device=device)
-        return Detector(None, cfg=s, imgsz=imgsz, half=half, device=device)
+            return Detector(s, cfg=cfg or "yolov5s", imgsz=imgsz, half=half, device=device,
+                            fuse=fuse)
+        return Detector(None, cfg=s, imgsz=imgsz, half=half, device=device, fuse=fuse)
     if task == "segment":
         from yolov5_tpu_torch.infer import resolve_device
         from yolov5_tpu_torch.models.yolo import SegmentationModel

@@ -68,9 +68,11 @@ def resolve_device(device, who):
     return dev
 
 
-def load_fused(weights, cfg, seed, model_cls, who):
-    """A ``model_cls`` (DetectionModel or SegmentationModel) with BN folded,
-    on the host, and its class names from a checkpoint's meta (or None).
+def load_model(weights, cfg, seed, model_cls, who, fuse=True):
+    """A ``model_cls`` (DetectionModel or SegmentationModel) on the host, BN
+    folded into the convs unless ``fuse`` is False, and its class names from
+    a checkpoint's meta (or None). Unfused, it needs weights that still hold
+    their BN: folded ones raise ValueError.
 
     ``weights`` is one of:
       - None: seeded random weights;
@@ -95,8 +97,11 @@ def load_fused(weights, cfg, seed, model_cls, who):
     else:
         raise ValueError(f"{who}: weights must be None, a .pt or .ckpt path, or "
                          f"a state_dict, got {weights!r}")
-    model = model_cls(cfg, fused=True, seed=seed, anchors=anchors)
-    missed = load_weights(model, fuse_conv_bn(sd))
+    model = model_cls(cfg, fused=fuse, seed=seed, anchors=anchors)
+    missed = load_weights(model, fuse_conv_bn(sd) if fuse else sd)
+    if not fuse and any(m.endswith("bn.running_var") for m in missed):
+        raise ValueError(f"{who}(fuse=False): the weights are BN-folded; running unfused "
+                         "needs weights that hold their BN")
     if missed:
         print(f"weight import: {len(missed)} unmatched entries")
     return model, names
@@ -114,7 +119,9 @@ def _class_filter(classes, nc):
 class Detector:
     """Weights in, detections out.
 
-    ``weights`` as ``load_fused`` takes them (BN is folded at load), or an
+    ``weights`` as ``load_model`` takes them (BN is folded at load unless
+    ``fuse`` is False; ``fused`` says which form runs, and only the folded
+    stem reaches kernel K2), or an
     exported model: a ``.onnx`` file (the port's ONNX runtime on ``device``,
     or OpenCV's DNN module with ``dnn``), ``triton+http(s)://host:port/model``
     (a KServe v2 server), or the JAX package's ``_saved_model`` / ``.pb`` /
@@ -122,12 +129,13 @@ class Detector:
     ``forward`` gives its predictions on ``device``, ``__call__`` adds the NMS
     (K1 on the card), ``model`` is None and names, classes and size come from
     the file's metadata. Several weights make an ``Ensemble``: see
-    ``ensemble``. ``half`` runs the model in bfloat16. It runs on the card
+    ``ensemble``. ``half`` runs the model in bfloat16. ``fuse`` means
+    nothing to an exported model, whose graph is fixed. It runs on the card
     unless ``device`` says otherwise (``device="cpu"``), and raises where no
     card is present."""
 
     def __init__(self, weights=None, cfg="yolov5s", imgsz=640, half=False,
-                 device="cuda", seed=0, dnn=False):
+                 device="cuda", seed=0, dnn=False, fuse=True):
         self.device = resolve_device(device, "Detector")
         self.dtype = torch.bfloat16 if half else torch.float32
         if isinstance(weights, (list, tuple)):
@@ -138,7 +146,8 @@ class Detector:
             self._init_exported(w, imgsz, dnn)
             return
         self.backend = "torch"
-        model, names = load_fused(weights, cfg, seed, DetectionModel, "Detector")
+        model, names = load_model(weights, cfg, seed, DetectionModel, "Detector", fuse)
+        self.fused = fuse
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
         self.names = names or model.names
@@ -160,6 +169,7 @@ class Detector:
         else:
             self.backend, fwd, meta = _tf_backend(w, imgsz)
         self.model = None
+        self.fused = True  # as the JAX package says of its exported backends
         self.dtype = torch.float32
         self.names = {int(k): v for k, v in (meta.get("names") or {}).items()}
         self.nc = int(meta.get("nc", max(self.names, default=79) + 1))

@@ -18,7 +18,7 @@ import torch
 from yolov5_tpu_torch.data.imageio import imwrite
 from yolov5_tpu_torch.data.letterbox import scale_boxes_np
 from yolov5_tpu_torch.data.sources import LoadImages
-from yolov5_tpu_torch.infer import annotate, color_for, load_fused, resolve_device
+from yolov5_tpu_torch.infer import annotate, color_for, load_model, resolve_device
 from yolov5_tpu_torch.models.layers import decode
 from yolov5_tpu_torch.models.yolo import SegmentationModel
 from yolov5_tpu_torch.ops.masks import masks2segments, process_mask, scale_image
@@ -30,13 +30,13 @@ class Segmenter:
     """A BN-folded SegmentationModel on ``device``, in float32 (or bfloat16
     with ``half``): uint8 (bs, s, s, 3) RGB in, decoded predictions (bs, N,
     5 + nc + nm) in float32 and prototypes (bs, hm, wm, nm) out. ``weights``
-    as ``infer.load_fused`` takes them: None (seeded random), a ``.ckpt`` of
+    as ``infer.load_model`` takes them: None (seeded random), a ``.ckpt`` of
     the JAX package, a reference ``.pt``, or a state_dict."""
 
     def __init__(self, weights=None, cfg="yolov5n-seg", device="cuda", seed=0, half=False):
         self.device = resolve_device(device, "Segmenter")
         self.dtype = torch.bfloat16 if half else torch.float32
-        model, names = load_fused(weights, cfg, seed, SegmentationModel, "Segmenter")
+        model, names = load_model(weights, cfg, seed, SegmentationModel, "Segmenter")
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
         self.names = names or model.names

@@ -4,6 +4,7 @@ same arithmetic.
 Box formats:
   xyxy  — (x1, y1, x2, y2) absolute corner coordinates
   xywh  — (cx, cy, w, h) absolute center + size
+  xywhn — xywh divided by the image's width and height
 """
 
 from __future__ import annotations
@@ -24,6 +25,28 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = x.unbind(-1)
     hw, hh = w * 0.5, h * 0.5
     return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], -1)
+
+
+def xywhn2xyxy(x: torch.Tensor, w=640, h=640, padw=0, padh=0) -> torch.Tensor:
+    """Normalized center boxes -> absolute corner boxes (with optional pad offset)."""
+    cx, cy, bw, bh = x.unbind(-1)
+    return torch.stack([w * (cx - bw * 0.5) + padw, h * (cy - bh * 0.5) + padh,
+                        w * (cx + bw * 0.5) + padw, h * (cy + bh * 0.5) + padh], -1)
+
+
+def xyxy2xywhn(x: torch.Tensor, w=640, h=640, clip=False, eps=0.0) -> torch.Tensor:
+    """Absolute corner boxes -> normalized center boxes."""
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5 / w, (y1 + y2) * 0.5 / h, (x2 - x1) / w,
+                        (y2 - y1) / h], -1)
+
+
+def xyn2xy(x: torch.Tensor, w=640, h=640, padw=0, padh=0) -> torch.Tensor:
+    """Normalized (..., 2) points -> absolute pixel points."""
+    px, py = x.unbind(-1)
+    return torch.stack([w * px + padw, h * py + padh], -1)
 
 
 def clip_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from yolov5_tpu_torch.ops.boxes import box_iou, xywh2xyxy
-from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_traceable
 
 # Class-offset width: boxes of different classes are translated apart by
 # class_id * MAX_WH so one class-agnostic pass does per-class NMS.
@@ -64,10 +64,11 @@ def _class_filter(class_filter, device):
 
 
 def _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks, *,
-                       iou_thres, agnostic, max_det, merge, out_dtype):
+                       iou_thres, agnostic, max_det, merge, out_dtype, traceable=False):
     """Shared NMS tail: class-offset -> greedy suppression -> optional merge
     -> compact to max_det padded `Detections`. Candidates arrive score-sorted
-    (descending) with gated-out entries at score 0."""
+    (descending) with gated-out entries at score 0. ``traceable`` suppresses
+    with ``greedy_nms_traceable`` instead of K1."""
     bs, k = top_scores.shape
     nm = top_masks.shape[-1]
     thres = _f32(iou_thres)
@@ -77,7 +78,8 @@ def _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks, *,
     else:
         nms_boxes = top_boxes + (cls_idx.to(top_boxes.dtype) * MAX_WH)[..., None]
     nms_boxes = nms_boxes.float().contiguous()
-    keep = greedy_nms(nms_boxes, top_scores.float().contiguous(), thres, max_det)
+    greedy = greedy_nms_traceable if traceable else greedy_nms
+    keep = greedy(nms_boxes, top_scores.float().contiguous(), thres, max_det)
 
     if merge:
         # merge-NMS: each kept box becomes the score-weighted average of all
@@ -109,10 +111,11 @@ def _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks, *,
 def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45,
                         multi_label=False, agnostic=False, max_det=300,
                         max_nms=30720, nc=None, class_filter=None,
-                        merge=False) -> Detections:
+                        merge=False, traceable=False) -> Detections:
     """Batched NMS on decoded predictions (bs, N, 5 + nc + nm): xywh box,
     objectness, class scores, optional mask coefficients. Arguments as in
-    ``yolov5_tpu.ops.nms.non_max_suppression``."""
+    ``yolov5_tpu.ops.nms.non_max_suppression``; ``traceable`` makes it a
+    function that ``torch.export`` traces (no K1: a graph of torch ops)."""
     prediction = torch.as_tensor(prediction)
     bs, n, no = prediction.shape
     if nc is None:
@@ -146,7 +149,7 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45,
     return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
                               iou_thres=iou_thres, agnostic=agnostic,
                               max_det=max_det, merge=merge,
-                              out_dtype=prediction.dtype)
+                              out_dtype=prediction.dtype, traceable=traceable)
 
 
 def non_max_suppression_from_maps(maps, anchors, strides, conf_thres=0.25,

@@ -25,15 +25,15 @@ MAX_DET_LIMIT = 4096
 
 
 def _iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (n, 4), b (m, 4) xyxy -> (n, m) IoU, as nms_pallas._iou."""
-    iw = (torch.minimum(a[:, None, 2], b[None, :, 2])
-          - torch.maximum(a[:, None, 0], b[None, :, 0])).clamp(min=0)
-    ih = (torch.minimum(a[:, None, 3], b[None, :, 3])
-          - torch.maximum(a[:, None, 1], b[None, :, 1])).clamp(min=0)
+    """a (..., n, 4), b (..., m, 4) xyxy -> (..., n, m) IoU, as nms_pallas._iou."""
+    iw = (torch.minimum(a[..., :, None, 2], b[..., None, :, 2])
+          - torch.maximum(a[..., :, None, 0], b[..., None, :, 0])).clamp(min=0)
+    ih = (torch.minimum(a[..., :, None, 3], b[..., None, :, 3])
+          - torch.maximum(a[..., :, None, 1], b[..., None, :, 1])).clamp(min=0)
     inter = iw * ih
-    area_a = (a[:, 2] - a[:, 0]).clamp(min=0) * (a[:, 3] - a[:, 1]).clamp(min=0)
-    area_b = (b[:, 2] - b[:, 0]).clamp(min=0) * (b[:, 3] - b[:, 1]).clamp(min=0)
-    return inter / (area_a[:, None] + area_b[None, :] - inter + 1e-7)
+    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) * (a[..., 3] - a[..., 1]).clamp(min=0)
+    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) * (b[..., 3] - b[..., 1]).clamp(min=0)
+    return inter / (area_a[..., :, None] + area_b[..., None, :] - inter + 1e-7)
 
 
 def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
@@ -74,6 +74,41 @@ def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float
                 break
             kept = torch.cat([kept, tb[torch.from_numpy(alive).to(tb.device)]])
     return torch.from_numpy(keep).to(boxes.device)
+
+
+def greedy_nms_traceable(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                         max_det: int) -> torch.Tensor:
+    """The same keep mask as torch ops that ``torch.export`` traces with
+    fixed shapes, for a graph that holds the NMS (``export --nms``): the
+    JAX package's ``_greedy_nms_scan`` walk, one candidate a step of a
+    ``while_loop`` over the whole batch, ending where every image has
+    reached its first score <= 0 or its ``max_det``-th keep. The (bs, K, K)
+    overlaps are computed once, so K is the export's cap (1024), not a
+    validation cap."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    bs, k, _ = boxes.shape
+    idx = torch.arange(k, device=boxes.device)
+    earlier = idx[:, None] < idx[None, :]
+    over = (_iou(boxes, boxes) > float(np.float32(iou_thres))) & earlier  # (bs, K, K)
+    live = torch.cat([scores > 0, scores.new_zeros((bs, 1), dtype=torch.bool)], 1)
+
+    def at(x, i):  # x[:, i] for a 0-d index tensor
+        return torch.index_select(x, 1, i.reshape(1)).squeeze(1)
+
+    def cond(i, keep, n_kept):
+        return (at(live, i) & (n_kept < max_det)).any()
+
+    def body(i, keep, n_kept):
+        hit = (torch.index_select(over, 2, i.reshape(1)).squeeze(2) & keep).any(1)
+        new = at(live, i) & (n_kept < max_det) & ~hit
+        keep = keep | ((idx == i)[None, :] & new[:, None])
+        return i + 1, keep, n_kept + new.to(n_kept.dtype)
+
+    start = (torch.zeros((), dtype=torch.int64, device=boxes.device),
+             torch.zeros((bs, k), dtype=torch.bool, device=boxes.device),
+             torch.zeros((bs,), dtype=torch.int64, device=boxes.device))
+    return while_loop(cond, body, start)[1]
 
 
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,

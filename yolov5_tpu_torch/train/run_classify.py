@@ -40,14 +40,16 @@ from yolov5_tpu_torch.utils.general import increment_path, init_seeds
 from yolov5_tpu_torch.utils.loggers import Loggers
 
 
-def fused_classifier(state_dict, cfg="yolov5s", nc=1000, cutoff=10, device="cpu"):
+def fused_classifier(state_dict, cfg="yolov5s", nc=1000, cutoff=10, device="cuda"):
     """An eval-mode ``ClassificationModel`` with BN folded from a state_dict
-    (fused or not), channels_last on ``device``."""
+    (fused or not), channels_last on ``device``: the card unless the caller
+    asks for the CPU."""
+    dev = resolve_device(device, "fused_classifier")
     model = ClassificationModel(cfg, nc=nc, cutoff=cutoff, fused=True)
     missed = load_weights(model, fuse_conv_bn(state_dict))
     if missed:
         print(f"weight import: {len(missed)} unmatched entries")
-    return model.to(device).to(memory_format=torch.channels_last).eval()
+    return model.to(dev).to(memory_format=torch.channels_last).eval()
 
 
 def load_classifier(weights, cfg="yolov5s", nc=None, cutoff=10, device="cuda"):
