@@ -2,12 +2,15 @@
 """Drive the PyTorch port's paths once on one CUDA card: serving, validation,
 training, the detect CLI's run, the HTTP service, segmentation predict,
 segmentation training and validation, classification, every config of the
-model zoo, export with the exported backends, and the benchmark and CI entry
-points.
+model zoo, export with the exported backends, the benchmark and CI entry
+points, and training over several ranks with the loggers and the HPO sweep.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --zoo-only   # phases 1, 2 and 19 alone
     python3 chip_smoke.py --bench-only # phases 1, 2 and 21 alone
+    python3 chip_smoke.py --ranks-only # phases 1, 2 and 22 alone
+    python3 chip_smoke.py --planted-faults  # 22 (a) sound and with each
+                                            # planted fault: its bounds' check
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
@@ -190,11 +193,39 @@ Phases, one line each:
      exported without it, every box within 1e-3 px, classes int32, no
      kernel launched by the graph; (e) ``ci_smoke --imgsz 96`` on the card,
      CI SMOKE PASSED, both kernels launched; (f) the phase's wall time.
+ 22. ranks (run last; ``--rank-worker`` is one of its processes, each with a
+     timeout, a failed one failing the phase with its log's tail): (a) two
+     ranks of one gloo group sharing cuda:0 (NCCL refuses two ranks on one
+     card), yolov5s at 640 px, f32 without TF32, no augmentation, global b32
+     (16 a rank) from phase 10's set in the device cache, 4 steps:
+     parameters, BN statistics and EMA bit-identical across the ranks;
+     against one process at b32 on the same global batches the first
+     step's gradient norm and the summed loss of each step within 1e-4
+     relative, and the training update (the state less its initial values,
+     all tensors together) within 2e-3 of its norm, a bound set between the
+     sound runs' readings and those of the planted faults
+     (``--planted-faults``: gradients averaged instead of summed, or batch
+     norm on each rank's own statistics; PERF.md); then both in bf16 with
+     device augmentation, ms/step (a rehearsal of the code path: gloo copies
+     through the host); (b) ``torchrun --nproc_per_node 1`` of ``python -m
+     yolov5_tpu_torch.train --device-aug`` (world 1, the plain path), 2
+     epochs of 4 steps at b32 bf16: results.csv, one TensorBoard event file,
+     results.png and labels.png where matplotlib imports (else said so),
+     K1/K2 in its EMA validation, ms/step beside phase 12's; (c) two gloo
+     ranks of ``segment train`` (yolov5s-seg, global b16, phase 17's set) and
+     ``classify train`` (yolov5s-cls, global b64, phase 18's set), one epoch
+     each: parameters equal across the ranks, finite losses, rank 0's
+     best.ckpt, validation on rank 0 alone; (d) two NCCL ranks on two cards
+     where there are two, else one line saying why not; (e) ``python -m
+     yolov5_tpu_torch.hpo``, a 2-trial local sweep of 1 epoch at 320 px:
+     hpo.csv with 2 rows and hyp_hpo.yaml. K1 and K2 launches of (b), (c)
+     and (e) count into the kernels line.
 Then one JSON line with each kernel's launches (in all, and per main-path
 call), error, times, bound and yardstick (and under "zoo" phase 19's, under
 "export" phase 20's numbers and K1's launches by path, under "bench" phase
 21's readings at the bench's shapes; and at the top level under "bench" the
-bench's line and the benchmarks rows), and last
+bench's line and the benchmarks rows, under "ranks" phase 22's readings), and
+last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -1197,6 +1228,7 @@ def phase_train_times(dev, data, smi):
           f"host enqueue {host:.3f} ms/step; peak memory {peak / 2 ** 30:.2f} GiB | {smi}")
     print(profile_line(lambda: step(state, {"idx": idx}, cache),
                        f"train step b{BATCH} {IMGSZ}px with device augmentation", smi))
+    return with_aug
 
 
 def phase_train_host_data(root):
@@ -3314,6 +3346,461 @@ def phase_bench(dev, root, data, weights, trained, smi, stem_ms=None):
     return total_launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: several ranks (parallel/, the sharded loaders, the loggers, HPO)
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+RANK_TIMEOUT = 300  # seconds a group of ranks may take
+RANK_STEPS = 4  # (a)'s f32 steps at the global batch
+RANK_TIME_STEPS = 4  # (a)'s timed bf16 steps, after one warmup step
+# (a): each step's summed loss and the first step's gradient norm against
+# one process, relative
+RANK_LOSS_RTOL = 1e-4
+# (a): the training update (the state less its initial values, every tensor
+# together) against one process's, relative to its norm. The two runs differ
+# only in the order of their float32 sums: the sound ranks read 5.38e-4 to
+# 7.12e-4 on the card, batch norm on each rank's own statistics (a planted
+# fault, ``--planted-faults``) 1.39e-2 (PERF.md). Gradients averaged instead
+# of summed read 7.09e-4 here, since the update clips the gradient norm at
+# 10: the first step's gradient norm, 0.5 off, fails that fault
+RANK_UPDATE_RTOL = 2e-3
+# ``--planted-faults``: (a)'s ranks with one fault planted in their process
+# (nothing in the package changes): the gradients averaged over the ranks
+# instead of summed, or batch norm on each rank's own statistics
+PLANTED_FAULTS = ("mean_grads", "local_bn")
+SWEEP_IMGSZ = 320
+CLS_RANK_BATCH = 64
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank, world, port, backend="gloo"):
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), LOCAL_RANK=str(rank if backend == "nccl" else 0),
+               YOLOV5_TPU_DIST_BACKEND=backend)
+    return env
+
+
+def _run_procs(cmds, envs, what, timeout=RANK_TIMEOUT):
+    """Run the commands together from the repo, each writing to its own log;
+    kill any left at the timeout. Returns the logs; raises with their tails
+    when any fails."""
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, cwd=REPO, env=e, stdout=log, stderr=subprocess.STDOUT,
+                              text=True) for c, e, log in zip(cmds, envs, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    failed = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- process {i} (exit {rc}) ---\n{outs[i][-4000:]}"
+                          for i, rc in failed)
+        raise AssertionError(f"phase 22 {what}: {len(failed)} process(es) failed\n{tails}")
+    return outs
+
+
+def _worker_result(out):
+    lines = [line for line in out.splitlines() if line.startswith("PHASE22 ")]
+    if not lines:
+        raise AssertionError(f"phase 22: a worker printed no result\n{out[-3000:]}")
+    return json.loads(lines[-1][len("PHASE22 "):])
+
+
+def _spawn_ranks(argv, what, world=RANKS, backend="gloo"):
+    """``chip_smoke.py --rank-worker <argv>`` as ``world`` ranks of one
+    process group; each rank's result line."""
+    port = _free_port()
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker", *argv]
+    outs = _run_procs([cmd] * world, [_rank_env(r, world, port, backend) for r in range(world)],
+                      what)
+    return [_worker_result(o) for o in outs], outs
+
+
+def _state_arrays(state):
+    out = {f"model/{k}": v.detach().float().cpu().numpy()
+           for k, v in state.model.state_dict().items() if v.is_floating_point()}
+    out.update({f"ema/{k}": v.float().cpu().numpy()
+                for k, v in {**state.ema.params, **state.ema.batch_stats}.items()})
+    return out
+
+
+def _digest(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(_state_arrays(state).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def rank_steps(dev, data, dtype, device_aug, steps, time_steps=0):
+    """yolov5s at IMGSZ from phase 10's train set in the device cache: the
+    global batches of BATCH (this rank's share when several train), hyp
+    scratch-low, ``steps`` steps, then ``time_steps`` timed ones (host clock
+    around synchronised steps). Returns (per-step [total, grad_norm] of this
+    rank, ms/step or None, state)."""
+    import torch
+
+    from yolov5_tpu_torch.data.dataset import create_loader
+    from yolov5_tpu_torch.data.device_cache import build_cache_arrays, index_batches, to_device
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.parallel.distributed import rank, world
+    from yolov5_tpu_torch.parallel.mesh import replicate
+    from yolov5_tpu_torch.train.loss import ComputeLoss
+    from yolov5_tpu_torch.train.optim import Optimizer
+    from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
+    from yolov5_tpu_torch.utils.general import check_dataset
+    from yolov5_tpu_torch.utils.hyp import load_hyp
+
+    hyp = load_hyp("scratch-low")
+    n = world()
+    ds, loader = create_loader(check_dataset(str(data))["train"], img_size=IMGSZ,
+                               batch_size=BATCH // n, augment=True, hyp=hyp, workers=1,
+                               device_aug=True, cache=False, shard=(rank(), n))
+    cache = to_device(build_cache_arrays(ds, loader.max_labels), dev)
+    model = DetectionModel("yolov5s", nc=VAL_CLASSES, seed=0).to(dev).to(
+        memory_format=torch.channels_last)
+    scaled = scale_hyp(hyp, nl=3, nc=VAL_CLASSES, imgsz=IMGSZ)
+    state = replicate(init_train_state(model, Optimizer(
+        dict(model.named_parameters()), scaled, TRAIN_EPOCHS, len(loader), BATCH)))
+    step = make_train_step(ComputeLoss(model.anchors_per_stride, VAL_CLASSES, scaled),
+                           device_aug_hyp=hyp if device_aug else None,
+                           dtype={"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype])
+    idx = [torch.from_numpy(b["idx"]).to(dev) for b in index_batches(loader, whole=True)]
+    losses = []
+    for i in range(steps):
+        _, m = step(state, {"idx": idx[i % len(idx)]}, cache)
+        losses.append([m["total"].item(), m["grad_norm"].item()])
+    ms = None
+    if time_steps:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(time_steps):
+            step(state, {"idx": idx[i % len(idx)]}, cache)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / time_steps
+    return losses, ms, state
+
+
+def _plant_fault(fault):
+    """One of PLANTED_FAULTS, in this process only."""
+    import yolov5_tpu_torch.models.layers as layers_mod
+    import yolov5_tpu_torch.train.trainer as trainer_mod
+    from yolov5_tpu_torch.parallel import mesh
+    from yolov5_tpu_torch.parallel.distributed import world
+
+    if fault == "mean_grads":
+        trainer_mod.all_reduce_grads = lambda g: [x / world() for x in mesh.all_reduce_grads(g)]
+    elif fault == "local_bn":
+        layers_mod.world = lambda: 1
+    elif fault != "none":
+        raise ValueError(f"no planted fault {fault!r}")
+
+
+def _rank_worker_steps(data, out, dtype, device_aug, steps, time_steps, fault="none"):
+    """(a)/(d) on one rank: the steps, then this rank's state to ``out``."""
+    import torch
+
+    from yolov5_tpu_torch.parallel.distributed import init_distributed, rank, rank_device
+
+    init_distributed("cuda")
+    _plant_fault(fault)
+    torch_tf32_off()
+    dev = rank_device("cuda")
+    losses, ms, state = rank_steps(dev, data, dtype, device_aug == "1", int(steps),
+                                   int(time_steps))
+    if out != "-":
+        np.savez(Path(out) / f"rank{rank()}.npz", **_state_arrays(state))
+    return {"rank": rank(), "losses": losses, "ms": ms, "digest": _digest(state),
+            "device": str(dev)}
+
+
+def _rank_worker_cli(module, *argv):
+    """``python -m <module> <argv>`` in this process (a rank, or torchrun's
+    one process): its training state's digest and the kernels' launches."""
+    import importlib
+    import runpy
+
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+    from yolov5_tpu_torch.parallel.distributed import rank
+
+    states = []
+    for name in ("run", "run_segment", "run_classify"):  # keep the state each run builds
+        mod = importlib.import_module(f"yolov5_tpu_torch.train.{name}")
+        mod.init_train_state = (lambda *a, _f=mod.init_train_state, **k:
+                                states.append(_f(*a, **k)) or states[-1])
+    stem_conv.launches = greedy_nms.launches = 0
+    sys.argv = [module, *argv]
+    t0 = time.perf_counter()
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    return {"rank": rank(), "digest": _digest(states[-1]), "wall_s": time.perf_counter() - t0,
+            "launches": {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}}
+
+
+def rank_worker(kind, *args):
+    """The entry of ``chip_smoke.py --rank-worker``: one process of phase 22."""
+    _import_port()
+    res = {"steps": _rank_worker_steps, "cli": _rank_worker_cli}[kind](*args)
+    print("PHASE22 " + json.dumps(res), flush=True)
+
+
+def _update_rel(a, b, init):
+    """How far the training update of ``a`` (its state less ``init``) lies
+    from ``b``'s: the norm of their difference over the norm of ``b``'s
+    update, over every tensor together; and the tensor where the difference
+    is largest against the tensor's own largest entry."""
+    diff = sum(float(((a[k] - b[k]).astype(np.float64) ** 2).sum()) for k in b)
+    upd = sum(float(((b[k] - init[k]).astype(np.float64) ** 2).sum()) for k in b)
+    worst = max(b, key=lambda k: np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30))
+    return (diff / upd) ** 0.5, worst, float(np.abs(a[worst] - b[worst]).max()
+                                             / max(np.abs(b[worst]).max(), 1e-30))
+
+
+def rank_reference(dev, train_data):
+    """(a)'s one process at the global batch, f32 without TF32: its steps'
+    [total, grad_norm], its state's arrays and the state before any step."""
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+
+    torch_tf32_off()
+    losses, _, state = rank_steps(dev, train_data, "float32", False, RANK_STEPS)
+    model = DetectionModel("yolov5s", nc=VAL_CLASSES, seed=0)
+    init = {f"{p}/{k}": v.detach().numpy() for p in ("model", "ema")
+            for k, v in model.state_dict().items() if v.is_floating_point()}
+    return np.array(losses), _state_arrays(state), init
+
+
+def rank_agreement(train_data, root, reference, fault="none"):
+    """(a)'s ranks, with ``fault`` planted in each, against ``reference``
+    (``rank_reference``): whether their states are bit-identical, each
+    step's summed loss, the first step's gradient norm and the training
+    update against one process's, and whether all are within bounds."""
+    ref_losses, ref, init = reference
+    out = Path(root) / f"ranks_a_{fault}"
+    out.mkdir(exist_ok=True)
+    ranks, _ = _spawn_ranks(["steps", str(train_data), str(out), "float32", "0",
+                             str(RANK_STEPS), "0", fault], f"(a) f32, fault {fault}")
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(RANKS)]
+    differ = [k for k in got[0] if not np.array_equal(got[0][k], got[1][k])]
+    identical = not differ and ranks[0]["digest"] == ranks[1]["digest"]
+    total = np.sum([r["losses"] for r in ranks], 0)[:, 0]
+    loss_rel = np.abs(total - ref_losses[:, 0]) / np.abs(ref_losses[:, 0])
+    gnorm_rel = float(abs(ranks[0]["losses"][0][1] - ref_losses[0, 1]) / ref_losses[0, 1])
+    update_rel, worst, worst_rel = _update_rel(got[0], ref, init)
+    ok = (identical and bool((loss_rel <= RANK_LOSS_RTOL).all())
+          and gnorm_rel <= RANK_LOSS_RTOL and update_rel <= RANK_UPDATE_RTOL)
+    return {"fault": fault, "identical": identical, "differ": differ[:5],
+            "loss_rel": loss_rel.tolist(), "grad_norm_rel": gnorm_rel, "update_rel": update_rel,
+            "worst": [worst, worst_rel], "ok": ok, "device": ranks[0]["device"],
+            "digest": ranks[0]["digest"]}
+
+
+def phase_planted_faults(dev, train_data, root, smi):
+    """``--planted-faults``: (a)'s sound ranks and each of PLANTED_FAULTS
+    against one process. Fails unless the sound ranks pass (a)'s bounds and
+    every planted fault fails them; returns each run's readings."""
+    reference = rank_reference(dev, train_data)
+    rows = [rank_agreement(train_data, root, reference, f) for f in ("none", *PLANTED_FAULTS)]
+    for r in rows:
+        print(f"planted fault {r['fault']}: ranks bit-identical {r['identical']} "
+              f"{r['differ'][:2]}; loss relative by step {np.round(r['loss_rel'], 9).tolist()}"
+              f", first-step grad norm {r['grad_norm_rel']:.3g} (bound {RANK_LOSS_RTOL}); "
+              f"update {r['update_rel']:.4g} (bound {RANK_UPDATE_RTOL}); most apart "
+              f"{r['worst'][0]} {r['worst'][1]:.3g}; within (a)'s bounds: {r['ok']} | {smi}")
+    if not rows[0]["ok"]:
+        raise AssertionError(f"planted faults: the sound ranks fail (a)'s bounds: {rows[0]}")
+    passed = [r["fault"] for r in rows[1:] if r["ok"]]
+    if passed:
+        raise AssertionError(f"planted faults: (a)'s bounds pass {passed}")
+    return [{k: r[k] for k in ("fault", "identical", "loss_rel", "grad_norm_rel", "update_rel",
+                               "worst", "ok")} for r in rows]
+
+
+def _add_launches(total, launches):
+    for k in total:
+        total[k] += launches[k]
+
+
+def phase_ranks(dev, train_data, seg_data, cls_data, root, smi, phase12_ms=None):
+    """Phase 22: (a) two gloo ranks on cuda:0 against one process at the
+    global batch, f32, then bf16 with device augmentation timed; (b) torchrun
+    --nproc_per_node 1 of the train CLI; (c) two gloo ranks of segment train
+    and classify train; (d) two NCCL ranks on two cards where there are two;
+    (e) a 2-trial HPO sweep. Returns the kernels' launches and the readings."""
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = {"stem_conv": 0, "greedy_nms": 0}
+    readings = {}
+    root = Path(root)
+
+    # (a) the ranks' steps against one process at the global batch
+    a = rank_agreement(train_data, root, rank_reference(dev, train_data))
+    print(f"ranks (a): {RANKS} gloo ranks on {a['device']} (yolov5s {IMGSZ}px f32, TF32 off, "
+          f"no augmentation, global b{BATCH} = {BATCH // RANKS} a rank, {RANK_STEPS} steps "
+          f"from the device cache): states bit-identical across the ranks "
+          f"{a['identical']} (sha256 {a['digest'][:12]}); against one process at b{BATCH}: "
+          f"loss relative by step {np.round(a['loss_rel'], 9).tolist()}, first-step grad "
+          f"norm {a['grad_norm_rel']:.3g} (bound {RANK_LOSS_RTOL} each); the training update "
+          f"(parameters, BN statistics, EMA, less their initial values) "
+          f"{a['update_rel']:.3g} of its norm away (bound {RANK_UPDATE_RTOL}); most apart, "
+          f"against its own largest entry: {a['worst'][0]} {a['worst'][1]:.3g} | {smi}")
+    if not a["ok"]:
+        raise AssertionError(f"phase 22 (a): ranks vs one process: {a}")
+    readings["a"] = {k: a[k] for k in ("loss_rel", "grad_norm_rel", "update_rel", "worst")}
+    ranks, _ = _spawn_ranks(["steps", str(train_data), "-", "bfloat16", "1", "1",
+                             str(RANK_TIME_STEPS)], "(a) bf16")
+    _, one_ms, _ = rank_steps(dev, train_data, "bfloat16", True, 1, RANK_TIME_STEPS)
+    rank_ms = [r["ms"] for r in ranks]
+    print(f"ranks (a) timed: bf16 autocast + device augmentation, global b{BATCH}: "
+          f"{RANKS} gloo ranks sharing cuda:0 {', '.join(f'{m:.3f}' for m in rank_ms)} ms/step "
+          f"(a REHEARSAL of the code path, not a multi-GPU speed: gloo copies every "
+          f"collective through the host, and both ranks share one card); one process "
+          f"{one_ms:.3f} ms/step | {smi}")
+    readings["a"].update(rank_ms=rank_ms, one_process_ms=one_ms)
+
+    # (b) torchrun --nproc_per_node 1: world 1, the plain path, through the CLI
+    port = _free_port()
+    project = root / "runs_ranks"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_port", str(port), str(REPO / "chip_smoke.py"), "--rank-worker", "cli",
+           "yolov5_tpu_torch.train", "--data", str(train_data), "--cfg", "yolov5s", "--imgsz",
+           str(IMGSZ), "--batch-size", str(BATCH), "--epochs", "2", "--device-aug", "--cache",
+           "device", "--workers", "1", "--project", str(project), "--name", "torchrun"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "YOLOV5_TPU_DIST_BACKEND")}
+    (out_b,) = _run_procs([cmd], [env], "(b) torchrun")
+    res = _worker_result(out_b)
+    _add_launches(launches, res["launches"])
+    run_dir = project / "torchrun"
+    rows = _csv_rows(run_dir)
+    losses = [[float(r[f"train/{k}"]) for k in ("box", "obj", "cls", "total")] for r in rows]
+    if len(rows) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 22 (b): results.csv {rows}")
+    if min(res["launches"].values()) < 2:
+        raise AssertionError(f"phase 22 (b): EMA validation launched {res['launches']}")
+    events = list(run_dir.glob("events.out.tfevents.*"))
+    if len(events) != 1 or events[0].stat().st_size < 100:
+        raise AssertionError(f"phase 22 (b): TensorBoard events {events}")
+    try:
+        import matplotlib  # noqa: F401
+
+        plots = "matplotlib imports: results.png and labels.png written"
+        missing = [p for p in ("results.png", "labels.png") if not (run_dir / p).exists()]
+        if missing:
+            raise AssertionError(f"phase 22 (b): {missing} not written")
+    except ImportError:
+        plots = ("matplotlib is not installed on this machine: results.png and labels.png "
+                 "soft-failed, as in the JAX package")
+    ms_step = [BATCH / float(r["train/imgs_per_sec"]) * 1e3 for r in rows]
+    print(f"ranks (b): torchrun --nproc_per_node 1 -m yolov5_tpu_torch.train --device-aug "
+          f"(world 1, the one-process path), yolov5s {IMGSZ}px b{BATCH} bf16, 2 epochs x "
+          f"{TRAIN_IMAGES // BATCH} steps in {res['wall_s']:.1f} s: losses "
+          f"{np.round(losses, 5).tolist()}, "
+          f"results.csv and one TensorBoard event file ({events[0].stat().st_size} bytes); "
+          f"{plots}; epoch ms/step (wall, results.csv) {np.round(ms_step, 3).tolist()} beside "
+          f"phase 12's {'(not run)' if phase12_ms is None else f'{phase12_ms:.3f}'} ms/step "
+          f"(CUDA events); launches {res['launches']} | {smi}")
+    readings["b"] = {"ms_step": ms_step, "phase12_ms": phase12_ms, "launches": res["launches"]}
+
+    # (c) two gloo ranks of segment train and classify train, one epoch each
+    for what, module, argv in (
+            ("segment", "yolov5_tpu_torch.segment",
+             ["train", "--data", str(seg_data), "--cfg", "yolov5s-seg", "--imgsz", str(IMGSZ),
+              "--batch-size", str(SEG_BATCH), "--epochs", "1", "--device-aug", "--cache",
+              "device", "--workers", "1", "--project", str(project), "--name", "seg"]),
+            ("classify", "yolov5_tpu_torch.classify",
+             ["train", "--data", str(cls_data), "--cfg", "yolov5s", "--imgsz", str(CLS_IMGSZ),
+              "--batch-size", str(CLS_RANK_BATCH), "--epochs", "1", "--project", str(project),
+              "--name", "cls"])):
+        ranks, outs = _spawn_ranks(["cli", module, *argv], f"(c) {what}")
+        if ranks[0]["digest"] != ranks[1]["digest"]:
+            raise AssertionError(f"phase 22 (c) {what}: the ranks' parameters differ")
+        for r in ranks:
+            _add_launches(launches, r["launches"])
+        run_dir = project / ("seg" if what == "segment" else "cls")
+        rows = _csv_rows(run_dir)
+        keys = [k for k in rows[0] if k.startswith("train/") and "per_sec" not in k]
+        vals = [float(rows[-1][k]) for k in keys]
+        if not np.isfinite(vals).all() or not (run_dir / "best.ckpt").exists():
+            raise AssertionError(f"phase 22 (c) {what}: {dict(zip(keys, vals))}, best.ckpt "
+                                 f"{(run_dir / 'best.ckpt').exists()}")
+        if ranks[1]["launches"] != {"stem_conv": 0, "greedy_nms": 0}:
+            raise AssertionError(f"phase 22 (c) {what}: rank 1 validated {ranks[1]}")
+        print(f"ranks (c): {what} train, {RANKS} gloo ranks on cuda:0, global b"
+              f"{SEG_BATCH if what == 'segment' else CLS_RANK_BATCH}, 1 epoch in "
+              f"{max(r['wall_s'] for r in ranks):.1f} s: parameters equal across the ranks "
+              f"(sha256 {ranks[0]['digest'][:12]}), losses "
+              f"{dict(zip(keys, np.round(vals, 5).tolist()))}, rank 0's best.ckpt written; "
+              f"launches by rank {[r['launches'] for r in ranks]} | {smi}")
+        readings[f"c_{what}"] = {"wall_s": max(r["wall_s"] for r in ranks)}
+
+    # (d) NCCL over two cards, where the machine has them
+    if torch.cuda.device_count() >= 2:
+        ranks, _ = _spawn_ranks(["steps", str(train_data), "-", "bfloat16", "1", "1",
+                                 str(RANK_TIME_STEPS)], "(d) nccl", backend="nccl")
+        if ranks[0]["digest"] != ranks[1]["digest"]:
+            raise AssertionError("phase 22 (d): the NCCL ranks' states differ")
+        print(f"ranks (d): {RANKS} NCCL ranks on {[r['device'] for r in ranks]}, bf16 + device "
+              f"augmentation, global b{BATCH}: {[round(r['ms'], 3) for r in ranks]} ms/step | "
+              f"{smi}")
+        readings["d"] = {"rank_ms": [r["ms"] for r in ranks]}
+    else:
+        print(f"ranks (d): not run: {torch.cuda.device_count()} CUDA device on this machine, "
+              "and NCCL needs a card for each rank")
+        readings["d"] = None
+
+    # (e) a 2-trial local sweep through the HPO CLI, in this process
+    from yolov5_tpu_torch.hpo import main as hpo_main
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    sweep = root / "sweep.json"
+    sweep.write_text(json.dumps({"algorithm": "random", "spec": {"maxCombo": 2}, "parameters": {
+        "lr0": {"type": "float", "min": 0.001, "max": 0.02}, "epochs": {"values": [1]}}}))
+    before = stem_conv.launches, greedy_nms.launches
+    t0 = time.perf_counter()
+    best_params, best_obj = hpo_main(
+        ["--data", str(train_data), "--sweep", str(sweep), "--cfg", "yolov5s", "--imgsz",
+         str(SWEEP_IMGSZ), "--batch-size", str(BATCH), "--device-aug", "--workers", "1",
+         "--project", str(project), "--name", "hpo"])
+    wall = time.perf_counter() - t0
+    _add_launches(launches, {"stem_conv": stem_conv.launches - before[0],
+                             "greedy_nms": greedy_nms.launches - before[1]})
+    hpo_dir = project / "hpo"
+    hpo_rows = (hpo_dir / "hpo.csv").read_text().splitlines()
+    if len(hpo_rows) != 3 or not (hpo_dir / "hyp_hpo.yaml").exists():
+        raise AssertionError(f"phase 22 (e): hpo.csv {hpo_rows}")
+    print(f"ranks (e): python -m yolov5_tpu_torch.hpo, 2 trials of 1 epoch at {SWEEP_IMGSZ} px "
+          f"in {wall:.1f} s: hpo.csv with 2 rows, hyp_hpo.yaml; best fitness {best_obj:.6f} "
+          f"at lr0 {best_params['lr0']:.6f} | {smi}")
+    readings["e"] = {"wall_s": wall}
+    readings["wall_s"] = time.perf_counter() - t_phase
+    print(f"ranks: phase 22 in {readings['wall_s']:.1f} s; K1/K2 launches {launches}")
+    return launches, readings
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -3360,9 +3847,24 @@ def main(argv=None):
                         help="phases 1, 2 and 21 alone (on the data, the calibrated weights "
                              "and phase 11's training run that 21 needs), then its numbers as "
                              "one JSON line and no result line")
+    parser.add_argument("--ranks-only", action="store_true",
+                        help="phases 1, 2 and 22 alone (on the data of 7, 10, 17 and 18), then "
+                             "its numbers as one JSON line and no result line")
+    parser.add_argument("--planted-faults", action="store_true",
+                        help="phases 1 and 2, then phase 22 (a)'s f32 ranks sound and with "
+                             "each planted fault against one process (on phase 10's data), "
+                             "then the readings as one JSON line and no result line")
+    parser.add_argument("--rank-worker", nargs=argparse.REMAINDER,
+                        help="one process of phase 22 (started by phase 22 itself)")
     opt = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    # no cloud logger in any run of this script or its processes: the card's
+    # machine has wandb installed without a key (wandb.init then raises), and
+    # this script contacts nothing outside the machine
+    os.environ["YOLOV5_TPU_LOGGERS"] = "off"
+    if opt.rank_worker:
+        return rank_worker(*opt.rank_worker)
     _import_port()
     dev = torch.device("cuda", 0)
     smi = phase_device()
@@ -3380,6 +3882,19 @@ def main(argv=None):
             _, bench_numbers = phase_bench(dev, root, data, weights, trained, smi)
         print(json.dumps({"bench": bench_numbers}))
         return 0
+    if opt.ranks_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as root:
+            phase_val_data(root)
+            _, ranks_numbers = phase_ranks(dev, phase_train_data(root), phase_seg_data(root),
+                                           phase_cls_data(root), root, smi)
+        print(json.dumps({"ranks": ranks_numbers}))
+        return 0
+    if opt.planted_faults:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as root:
+            phase_val_data(root)
+            rows = phase_planted_faults(dev, phase_train_data(root), root, smi)
+        print(json.dumps({"planted_faults": rows}))
+        return 0
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
     det, batch, launches = phase_slice(dev)
@@ -3390,7 +3905,7 @@ def main(argv=None):
         phase_val_times(dev, data, a, smi)
         train_data = phase_train_data(root)
         train_launches, trained = phase_train(dev, train_data, root, smi)
-        phase_train_times(dev, train_data, smi)
+        phase12_ms = phase_train_times(dev, train_data, smi)
         host_data = phase_train_host_data(root)
         host_launches = phase_train_host(dev, host_data, root, smi)
         phase_train_host_times(dev, host_data, smi)
@@ -3411,12 +3926,15 @@ def main(argv=None):
                                                        smi)
         bench_launches, bench_numbers = phase_bench(dev, root, data, weights, trained, smi,
                                                     stem_ms=times["stem_conv"]["ms"])
+        ranks_launches, ranks_numbers = phase_ranks(dev, train_data, seg_data, cls_data, root,
+                                                    smi, phase12_ms)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
                 + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
-                + export_launches[k] + bench_launches[k] for k, n in launches.items()}
+                + export_launches[k] + bench_launches[k] + ranks_launches[k]
+                for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
@@ -3431,7 +3949,7 @@ def main(argv=None):
          **times["stem_conv"], "zoo": zoo_times["stem_conv"],
          "bench": bench_numbers.pop("stem_conv")},
     ]
-    print(json.dumps({"kernels": kernels, "bench": bench_numbers}))
+    print(json.dumps({"kernels": kernels, "bench": bench_numbers, "ranks": ranks_numbers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

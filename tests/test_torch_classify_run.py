@@ -168,10 +168,14 @@ print("RESULT", json.dumps({{"train": tr, "val": va, "predict": pr}}))
 
 
 def test_cli_refuses_several_processes(monkeypatch, data):
+    """``classify train`` no longer refuses WORLD_SIZE > 1: it joins the
+    process group of torchrun's environment, which names this process's
+    RANK (two ranks train in tests/test_torch_parallel_run.py)."""
     from yolov5_tpu_torch.classify import main
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(KeyError, match="RANK"):
         main(["train", "--device", "cpu", "--data", str(data)])
 
 

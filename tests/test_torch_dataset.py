@@ -146,8 +146,9 @@ def test_loader_batches_equal_jax(dataset, rect, cache):
 def test_loader_single_cls_and_unported_options(dataset):
     """single_cls; host augmentation and segmentation masks are ported now
     (an augmented loader yields batches, a mask loader mask batches: empty
-    for box labels, as in the JAX package); the JAX loader's option the port
-    has not (a per-rank shard) is not accepted."""
+    for box labels, as in the JAX package); the per-rank shard is ported
+    too: a training loader takes one (tests/test_torch_parallel.py), and a
+    validation loader, which every rank reads whole, refuses it."""
     ds, _ = pds.create_loader(str(dataset), img_size=160, single_cls=True)
     assert all((l[:, 0] == 0).all() for l in ds.labels)
     _, loader = pds.create_loader(str(dataset), img_size=160, batch_size=2, augment=True,
@@ -156,8 +157,11 @@ def test_loader_single_cls_and_unported_options(dataset):
     _, loader = pds.create_loader(str(dataset), img_size=160, batch_size=2, masks=True)
     masks = next(iter(loader))["masks"]
     assert masks.shape == (2, 40, 40) and masks.dtype == np.int32 and not masks.any()
-    with pytest.raises(TypeError, match="shard"):
-        pds.create_loader(str(dataset), shard=True)
+    with pytest.raises(ValueError, match="shard"):
+        pds.create_loader(str(dataset), shard=(0, 2))
+    _, loader = pds.create_loader(str(dataset), img_size=160, batch_size=1, augment=True,
+                                  workers=1, shard=(1, 2))
+    assert (loader.rank, loader.world) == (1, 2)
 
 
 def test_general_utils(tmp_path):
@@ -178,5 +182,8 @@ def test_general_utils(tmp_path):
     assert pgen.check_dataset(str(yml)) == jgen.check_dataset(str(yml))
     with pytest.raises(FileNotFoundError):  # a preset whose split is not there
         pgen.check_dataset("coco128")
-    with pytest.raises(NotImplementedError, match="loggers"):
-        pgen.check_dataset("clearml://abc")
+    # clearml:// goes to the ClearML SDK, in both packages (not installed here;
+    # tests/test_torch_loggers.py drives it with a fake one)
+    for gen in (pgen, jgen):
+        with pytest.raises(ImportError, match="clearml"):
+            gen.check_dataset("clearml://abc")

@@ -141,7 +141,11 @@ def test_port_imports_no_jax():
             "yolov5_tpu_torch.data.cv, yolov5_tpu_torch.data.augment, "
             "yolov5_tpu_torch.train.run, yolov5_tpu_torch.train.prefetch, "
             "yolov5_tpu_torch.train.evolve, yolov5_tpu_torch.train.run_segment, "
-            "yolov5_tpu_torch.eval.rle, yolov5_tpu_torch.ops.rasterize\n"
+            "yolov5_tpu_torch.eval.rle, yolov5_tpu_torch.ops.rasterize, "
+            "yolov5_tpu_torch.parallel.distributed, yolov5_tpu_torch.parallel.mesh, "
+            "yolov5_tpu_torch.utils.loggers, yolov5_tpu_torch.utils.plots, "
+            "yolov5_tpu_torch.train.hpo, yolov5_tpu_torch.hpo, "
+            "yolov5_tpu_torch.train.run_classify, yolov5_tpu_torch.classify\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'yolov5_tpu', 'cv2', 'PIL')]\n"
             "assert not bad, bad\n")

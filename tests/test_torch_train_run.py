@@ -284,8 +284,27 @@ def test_ms_resize_matches_jax_image_resize(size):
 
 
 @pytest.mark.parametrize("option", ["upload_dataset"])
-def test_options_not_ported_raise(data_yaml, tmp_path, option):
+def test_options_not_ported_raise(data_yaml, tmp_path, option, monkeypatch):
+    """``upload_dataset`` no longer raises: with the loggers ported, the run
+    logs its dataset to the cloud loggers whose SDK imports (here a fake
+    Comet SDK; tests/test_torch_loggers.py drives every sink)."""
+    import sys
+    import types
+
+    events = []
+
+    class _Exp:
+        def __init__(self, **kw):
+            pass
+
+        def __getattr__(self, name):
+            return lambda *a, **k: events.append((name, a))
+
+    comet = types.ModuleType("comet_ml")
+    comet.Experiment = _Exp
+    monkeypatch.setitem(sys.modules, "comet_ml", comet)
+    monkeypatch.setenv("YOLOV5_TPU_LOGGERS", "comet")
     kw = _kw(data_yaml, tmp_path, "x")
-    kw[option] = True
-    with pytest.raises(NotImplementedError, match=option.split("_")[0]):
-        run(**kw)
+    kw.update({option: True, "epochs": 1})
+    run(**kw)
+    assert any(name == "log_others" and "data/train" in a[0] for name, a in events)

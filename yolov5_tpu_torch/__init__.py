@@ -28,10 +28,14 @@ Subpackages
   end-user results
 - ``eval``   — metrics, COCO scoring, the validation loop
 - ``train``  — assignment, loss, optimizer and EMA, the train step, the
-  training loop and its CLI, ``python -m yolov5_tpu_torch.train``
+  training loop and its CLI, ``python -m yolov5_tpu_torch.train``, hyp
+  evolution and the HPO sweep (``hpo``, CLI ``python -m yolov5_tpu_torch.hpo``)
+- ``parallel`` — several ranks under torchrun: the process group, the
+  replicated state, the summed gradient, the global batch's rows
 - ``utils``  — run directories, dataset configs, ``.ckpt`` reading and
-  writing, hyperparameters, callbacks, the CSV logger, autoanchor, URL
-  fetching, the label font, profiling (``profile``) and ``autobatch``
+  writing, hyperparameters, callbacks, the loggers (CSV, TensorBoard, W&B,
+  ClearML, Comet), the plots, autoanchor, URL fetching, the label font,
+  profiling (``profile``) and ``autobatch``
 - ``val``    — the validation CLI, ``python -m yolov5_tpu_torch.val``
 
 The CUDA kernels under ``csrc/`` are built by ``_build.py`` at first use on a

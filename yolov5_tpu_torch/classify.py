@@ -4,10 +4,12 @@
     python -m yolov5_tpu_torch.classify val --data imagenet10 --weights runs/train-cls/exp/best.ckpt
     python -m yolov5_tpu_torch.classify predict --weights best.ckpt --source images/
 
-``train`` (``train/run_classify.run``) writes ``results.csv``, ``last.ckpt``
-and ``best.ckpt`` under ``--project/--name`` and prints, last, one JSON line
-with the best top-1 and the run directory; the decoded set lives in device
-memory and is augmented there unless ``--no-device-aug``. ``val``
+``train`` (``train/run_classify.run``) writes ``results.csv``, TensorBoard
+events, ``last.ckpt`` and ``best.ckpt`` under ``--project/--name`` and
+prints, last, one JSON line with the best top-1 and the run directory; the decoded set lives in device memory and is
+augmented there unless ``--no-device-aug``. Under torchrun (``WORLD_SIZE``
+> 1) each rank trains on ``cuda:LOCAL_RANK`` with its share of each global
+batch (``--batch-size``), and rank 0 validates, saves, logs and prints. ``val``
 (``validate_classify``) prints the per-class table and then its result as
 one JSON line. ``predict`` letterboxes each image to ``--imgsz`` and prints
 its path and top-5 classes with their softmax probabilities. Every model is
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 
 def parse_opt(argv=None):
@@ -61,18 +62,18 @@ def parse_opt(argv=None):
 
 
 def train(opt):
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("classify train: several processes (WORLD_SIZE > 1) need the "
-                                  "multi-GPU port (ROADMAP Open items 1, item 6)")
+    from yolov5_tpu_torch.parallel.distributed import init_distributed, is_main
     from yolov5_tpu_torch.train.run_classify import run
 
+    init_distributed(opt.device)
     best_top1, save_dir = run(
         data=opt.data, cfg=opt.cfg, epochs=opt.epochs, batch_size=opt.batch_size,
         imgsz=opt.imgsz, lr0=opt.lr0, optimizer=opt.optimizer,
         label_smoothing=opt.label_smoothing, seed=opt.seed, project=opt.project, name=opt.name,
         exist_ok=opt.exist_ok, device_aug=not opt.no_device_aug, device=opt.device)
     out = {"best_top1": best_top1, "save_dir": str(save_dir)}
-    print(json.dumps(out))
+    if is_main():
+        print(json.dumps(out))
     return out
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from yolov5_tpu_torch.data.cv import resize
-from yolov5_tpu_torch.data.imageio import imread
+from yolov5_tpu_torch.data.imageio import image_size, imread
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -57,12 +57,9 @@ class ImageFolder:
         s = self.img_size
         h, w = im.shape[:2]
         if self.augment and rng is not None:
-            scale = rng.uniform(0.6, 1.0)
-            ch, cw = int(h * scale), int(w * scale)
-            y0 = int(rng.integers(0, h - ch + 1))
-            x0 = int(rng.integers(0, w - cw + 1))
+            y0, x0, ch, cw, flip = _crop_draw(h, w, rng)
             im = im[y0:y0 + ch, x0:x0 + cw]
-            if rng.random() < 0.5:
+            if flip:
                 im = im[:, ::-1]
         else:
             m = min(h, w)
@@ -71,17 +68,40 @@ class ImageFolder:
         im = resize(np.ascontiguousarray(im), (s, s), "linear")
         return np.ascontiguousarray(im[..., ::-1]), label
 
-    def batches(self, batch_size, shuffle=False, seed=0, epoch=0):
+    def batches(self, batch_size, shuffle=False, seed=0, epoch=0, shard=(0, 1)):
         """Batches {"images": (B, s, s, 3) uint8 RGB, "labels": (B,) int32};
-        the last partial batch is dropped, as the JAX package drops it."""
+        the last partial batch is dropped, as the JAX package drops it.
+
+        ``shard=(rank, world)``: this rank's rows (rank, rank + world, ...)
+        of each global batch of ``batch_size * world``. The crops of the
+        other rows are drawn from their images' sizes but not made, so each
+        row gets the crop that one process at the global batch gives it."""
+        r, n = shard
+        gbs = batch_size * n
         idx = np.arange(len(self))
         if shuffle:
             idx = np.random.default_rng(seed + epoch).permutation(idx)
         rng = np.random.default_rng(seed * 7919 + epoch)
-        for b0 in range(0, len(idx) - batch_size + 1, batch_size):
-            sel = idx[b0:b0 + batch_size]
-            ims, labels = zip(*(self.load(int(i), rng) for i in sel))
+        for b0 in range(0, len(idx) - gbs + 1, gbs):
+            rows = []
+            for j, i in enumerate(idx[b0:b0 + gbs]):
+                if j % n == r:
+                    rows.append(self.load(int(i), rng))
+                elif self.augment:
+                    w, h, _ = image_size(self.samples[int(i)][0])
+                    _crop_draw(h, w, rng)
+            ims, labels = zip(*rows)
             yield {"images": np.stack(ims), "labels": np.array(labels, np.int32)}
+
+
+def _crop_draw(h, w, rng):
+    """An augmented sample's crop (y0, x0, height, width) of 0.6-1.0 of each
+    side and its flip, drawn from ``rng`` in the JAX package's order."""
+    scale = rng.uniform(0.6, 1.0)
+    ch, cw = int(h * scale), int(w * scale)
+    y0 = int(rng.integers(0, h - ch + 1))
+    x0 = int(rng.integers(0, w - cw + 1))
+    return y0, x0, ch, cw, rng.random() < 0.5
 
 
 def normalize(images, dtype=torch.float32):

@@ -22,8 +22,11 @@ wm) uint8.
 
 Images are read by ``data.imageio`` (24-bit BMP with numpy, anything else
 with OpenCV) and resized by ``data.cv``: no path needs OpenCV for BMP
-input. The JAX package's per-rank shard and native JPEG batches are not
-ported.
+input. A training loader with ``shard=(rank, world)`` yields one rank's
+share of each global batch: after the epoch's shuffle, rank r takes the
+indices at positions r, r + world, ... (the JAX package's shard), so the
+ranks' batch bi together are the one-process batch bi at ``world`` times
+the batch size. The JAX package's native JPEG batches are not ported.
 """
 
 from __future__ import annotations
@@ -555,11 +558,18 @@ class Loader:
     spawned processes, at most workers + 2 batches in flight; ``close()``
     ends it. Sample i of an epoch draws from ``default_rng(seed * 100003 +
     epoch * 1009 + i)``, a quad batch's layout from ``(seed * 100003 + epoch
-    * 1009 + bi * 7919) * 31 + 7``, wherever the batch is built."""
+    * 1009 + bi * 7919) * 31 + 7``, wherever the batch is built.
+
+    ``shard=(rank, world)``: this rank's rows of the epoch's order, strided;
+    ``batch_size`` is the rank's share of the global batch, and every rank
+    takes as many batches as one process would at the global batch. A quad
+    loader strides groups of 4 (rank r takes the global batch's groups r,
+    r + world, ...) and keeps those groups' layout draws, so its rows are
+    the one-process quad batch's rows r, r + world, ..."""
 
     def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128, workers=8,
                  rect=False, stride=32, pad=0.5, seed=0, shuffle=None, quad=False,
-                 masks=False, mask_ratio=4, overlap=True):
+                 masks=False, mask_ratio=4, overlap=True, shard=(0, 1)):
         self.ds = dataset
         self.bs = batch_size
         if max_labels in (None, "auto"):
@@ -588,6 +598,9 @@ class Loader:
         self.stride = stride
         self.pad = pad
         self.seed = seed
+        self.rank, self.world = shard
+        if self.world > 1 and not dataset.augment:
+            raise ValueError("only a training loader takes a shard")
         self.epoch = 0
         self.weighted_indices = None  # set per epoch by set_image_weights
         self._rect_plan = None
@@ -604,15 +617,25 @@ class Loader:
         if self.rect:
             return math.ceil(len(self.ds) / self.bs)
         n = len(self.weighted_indices) if self.weighted_indices is not None else len(self.ds)
-        return n // self.bs if self.drop_last else math.ceil(n / self.bs)
+        gbs = self.bs * self.world  # the global batch
+        return n // gbs if self.drop_last else math.ceil(n / gbs)
 
-    def _indices(self, epoch):
+    def _order(self, epoch):
+        """The epoch's order over all ranks."""
         if self.weighted_indices is not None:
             return np.asarray(self.weighted_indices)
         idx = np.arange(len(self.ds))
         if self.shuffle:
             idx = np.random.default_rng(self.seed + epoch).permutation(idx)
         return idx
+
+    def _indices(self, epoch):
+        """This rank's share of the epoch's order."""
+        idx = self._order(epoch)
+        if self.world == 1:
+            return idx
+        pos = np.arange(len(idx)) // (4 if self.quad else 1)
+        return idx[pos % self.world == self.rank]
 
     def set_image_weights(self, weights, epoch=0):
         """Resample the epoch's indices by per-image weights (reference
@@ -661,11 +684,11 @@ class Loader:
             batch["masks"] = gt_masks
         return batch
 
-    def _quad_collate(self, samples, rng):
+    def _quad_collate(self, samples, draws):
         """Quad batches (reference collate_fn4, utils/dataloaders.py:865-891):
         each group of 4 samples becomes one 2s x 2s image, the first sample
-        upsampled 2x (half the time) or the four tiled 2x2. The label
-        capacity grows 4x so that a tiled group never truncates."""
+        upsampled 2x (group o's ``draws[o]`` < 0.5) or the four tiled 2x2.
+        The label capacity grows 4x so that a tiled group never truncates."""
         s = self.ds.img_size
         n_out = len(samples) // 4
         cap = self.max_labels * 4
@@ -674,7 +697,7 @@ class Loader:
         valid = np.zeros((n_out, cap), bool)
         for o in range(n_out):
             group = samples[4 * o:4 * o + 4]
-            if rng.random() < 0.5:
+            if draws[o] < 0.5:
                 im, lab, _ = group[0]
                 images[o] = resize(im, (2 * s, 2 * s), "linear")[..., ::-1]
             else:
@@ -704,9 +727,10 @@ class Loader:
             fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
             samples = list(map_fn(fetch, chunk[:real]))
             samples += [samples[-1]] * (len(chunk) - real)
-            if self.quad:
-                batch = self._quad_collate(samples, np.random.default_rng(
-                    (base_seed + bi * 7919) * 31 + 7))
+            if self.quad:  # the global batch's draws, this rank's groups
+                draws = np.random.default_rng((base_seed + bi * 7919) * 31 + 7).random(
+                    len(chunk) * self.world // 4)
+                batch = self._quad_collate(samples, draws[self.rank::self.world])
             else:
                 batch = self._collate(samples)
         batch["real"] = real
@@ -808,7 +832,7 @@ class Loader:
 def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=128,
                   workers=8, seed=0, single_cls=False, cache=None, device_aug=False,
                   rect=False, stride=32, pad=0.5, hyp=None, shuffle=None, quad=False,
-                  masks=False, mask_ratio=4, overlap=True):
+                  masks=False, mask_ratio=4, overlap=True, shard=(0, 1)):
     """Dataset + loader in one call (reference create_dataloader,
     utils/dataloaders.py:106-164). Validation (augment False) sees every
     image once and pads the final batch; training (augment True) shuffles
@@ -820,7 +844,7 @@ def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=1
                      augment=augment, device_aug=device_aug, hyp=hyp)
     loader = Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
                     rect=rect, stride=stride, pad=pad, seed=seed, shuffle=shuffle, quad=quad,
-                    masks=masks, mask_ratio=mask_ratio, overlap=overlap)
+                    masks=masks, mask_ratio=mask_ratio, overlap=overlap, shard=shard)
     if cache is None and augment:
         # the reference's check_cache_ram (dataloaders.py:614-631)
         copies = loader.workers if loader.use_processes else 1

@@ -61,13 +61,16 @@ def to_device(arrays: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def index_batches(loader):
+def index_batches(loader, whole=False):
     """The epoch's shuffled index batches of ``loader``, the
     final one padded with its last index: the only thing the host ships per
-    step."""
-    idx = loader._indices(loader.epoch)
+    step. ``whole``: the global batches of a sharded loader (every rank's
+    rows, interleaved as the shard strides them), which a rank gathers
+    from its copy of the cache to augment the global batch."""
+    idx = loader._order(loader.epoch) if whole else loader._indices(loader.epoch)
+    bs = loader.bs * loader.world if whole else loader.bs
     for bi in range(len(loader)):
-        chunk = [int(i) for i in idx[bi * loader.bs:(bi + 1) * loader.bs]]
+        chunk = [int(i) for i in idx[bi * bs:(bi + 1) * bs]]
         real = len(chunk)
-        chunk += [chunk[-1]] * (loader.bs - real)
+        chunk += [chunk[-1]] * (bs - real)
         yield {"idx": np.asarray(chunk, np.int64), "real": real}

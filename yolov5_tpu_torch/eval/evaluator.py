@@ -295,9 +295,9 @@ def run_study(data, weights=None, imgsz_range=(256, 1536, 128), project="runs/va
               name="study", exist_ok=True, **kwargs):
     """``--task study`` (reference val.py:474-528): mAP-vs-latency sweep over
     image sizes 256..1536 step 128. Writes ``study_{data}_{weights}.txt``
-    (one row per size: imgsz, P, R, mAP50, mAP50-95, fwd/nms/host ms); the
-    plot waits for the port of ``utils/plots``. Returns the list of per-size
-    result dicts."""
+    (one row per size: imgsz, P, R, mAP50, mAP50-95, fwd/nms/host ms) next to
+    a ``study.png`` speed-accuracy curve, mirroring the reference's
+    ``plot_val_study``. Returns the list of per-size result dicts."""
     from yolov5_tpu_torch.utils.general import increment_path
 
     lo, hi, step = imgsz_range
@@ -320,5 +320,8 @@ def run_study(data, weights=None, imgsz_range=(256, 1536, 128), project="runs/va
               f"{sp['forward'] + sp['nms']:.1f} ms/img device")
     np.savetxt(out_txt, np.array(rows), fmt="%10.4g",
                header="imgsz P R mAP50 mAP50-95 fwd_ms nms_ms host_ms")
+    from yolov5_tpu_torch.utils.plots import plot_study
+
+    plot_study([out_txt], save_dir / "study.png")  # soft-fail: never kills the sweep
     print(f"study saved to {out_txt}")
     return results

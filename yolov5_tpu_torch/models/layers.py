@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolov5_tpu_torch.ops.stem import STEM_WIDTHS, stem_conv
+from yolov5_tpu_torch.parallel.distributed import all_reduce_sum_grad, world
 
 # the reference training recipe: torch BatchNorm2d(momentum=0.03, eps=1e-3)
 BN_MOMENTUM = 0.03
@@ -60,13 +61,37 @@ def batch_norm_train(x, bn: nn.BatchNorm2d):
     and biased variance, and move the running statistics toward the batch
     mean and the BIASED variance (torch's BatchNorm2d moves the running
     variance toward the unbiased one, n/(n-1) larger). The statistics are
-    float32 whatever x's dtype; the output has x's dtype."""
+    float32 whatever x's dtype; the output has x's dtype. When several
+    processes train, the statistics are those of the global batch
+    (``_batch_norm_global``), as under the JAX package's mesh."""
+    if world() > 1:
+        return _batch_norm_global(x, bn)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1 - m).add_(var, alpha=m)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _batch_norm_global(x, bn: nn.BatchNorm2d):
+    """``batch_norm_train`` over the global batch of several ranks: one
+    float32 all-reduce of [sum, sum of squares, count] per layer, through
+    which the gradient flows. The sums are taken about the running mean,
+    equal on every rank, so that the variance does not cancel in float32."""
+    c = x.shape[1]
+    k = bn.running_mean.detach().clone().view(1, c, 1, 1)
+    d = x.float() - k
+    n = d.new_full((1,), float(x.shape[0] * x.shape[2] * x.shape[3]))
+    s = all_reduce_sum_grad(torch.cat([d.sum((0, 2, 3)), (d * d).sum((0, 2, 3)), n]))
+    dm = s[:c] / s[2 * c]
+    var = s[c:2 * c] / s[2 * c] - dm * dm
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(k.view(c) + dm, alpha=m)
+        bn.running_var.mul_(1 - m).add_(var, alpha=m)
+    y = (d - dm.view(1, c, 1, 1)) * torch.rsqrt(var + bn.eps).view(1, c, 1, 1)
+    return (y * bn.weight.view(1, c, 1, 1) + bn.bias.view(1, c, 1, 1)).to(x.dtype)
 
 
 def batch_norm(c: int) -> nn.BatchNorm2d:

@@ -6,17 +6,19 @@
         --weights runs/train-seg/exp/best.ckpt --save-json seg.json
     python -m yolov5_tpu_torch.segment predict --weights best.ckpt --source images/
 
-``train`` (``train/run_segment.run``) writes ``results.csv``, ``last.ckpt``
-and ``best.ckpt`` under ``--project/--name`` and prints, last, one JSON
-line: best fitness, the last validation's box and mask metrics and the run
-directory; by default the host augments, ``--device-aug`` moves the
-mosaic, HSV, flips and the GT masks to the device. ``val`` scores a
+``train`` (``train/run_segment.run``) writes ``results.csv``, TensorBoard
+events, ``last.ckpt``, ``best.ckpt`` and, unless ``--noplots``,
+``results.png`` and ``labels.png`` under ``--project/--name`` and prints, last, one JSON line: best fitness, the
+last validation's box and mask metrics and the run directory; by default
+the host augments, ``--device-aug`` moves the mosaic, HSV, flips and the GT
+masks to the device. Under torchrun (``WORLD_SIZE`` > 1) each rank trains on
+``cuda:LOCAL_RANK``, ``--batch-size`` is the global batch, and rank 0
+validates, saves, logs and prints. ``val`` scores a
 checkpoint's box and mask mAP (``evaluate_segment``) and prints its JSON
 line; ``--save-json`` also writes the COCO segm rows and scores them in
 both COCO modes, bbox and segm. ``predict`` writes the images with mask
 overlays and boxes (and with ``--save-txt`` one polygon per instance).
 ``--device`` defaults to ``cuda`` and raises when no CUDA device is there.
-``--noplots`` is accepted; no plots are written.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ def parse_opt(argv=None):
     t.add_argument("--noautoanchor", action="store_true")
     t.add_argument("--multi-scale", action="store_true",
                    help="a stride-aligned 0.5-1.5x size per batch")
-    t.add_argument("--noplots", action="store_true", help="no plots (none are written)")
-    t.add_argument("--sync-bn", action="store_true", help="no-op on one device")
+    t.add_argument("--noplots", action="store_true", help="no results.png / labels.png")
+    t.add_argument("--sync-bn", action="store_true",
+                   help="batch norm over the global batch (always on)")
     t.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="forward under bf16 autocast (float32 master weights) or in float32")
     t.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
@@ -107,8 +110,10 @@ def parse_opt(argv=None):
 
 
 def train(opt):
+    from yolov5_tpu_torch.parallel.distributed import init_distributed, is_main
     from yolov5_tpu_torch.train.run_segment import run
 
+    init_distributed(opt.device)
     best_fitness, results, save_dir = run(
         data=opt.data, cfg=opt.cfg, hyp=opt.hyp, epochs=opt.epochs, batch_size=opt.batch_size,
         imgsz=opt.imgsz, optimizer=opt.optimizer, cos_lr=opt.cos_lr, seed=opt.seed,
@@ -121,7 +126,8 @@ def train(opt):
         sync_bn=opt.sync_bn, multi_scale=opt.multi_scale, dtype=opt.dtype, device=opt.device)
     out = {"best_fitness": best_fitness, "save_dir": str(save_dir),
            **{k: results[k] for k in ("box", "mask", "fitness") if k in results}}
-    print(json.dumps(out))
+    if is_main():
+        print(json.dumps(out))
     return out
 
 

@@ -6,22 +6,35 @@ the ``__main__`` of the ``train`` package.
     python -m yolov5_tpu_torch.train --device cpu --data shapes.yaml --cfg yolov5n \\
         --imgsz 128 --batch-size 4 --epochs 2 --dtype float32
 
+    torchrun --nproc_per_node 4 -m yolov5_tpu_torch.train --data shapes.yaml \
+        --cfg yolov5s --batch-size 64
+
 By default the host augments (mosaic, copy-paste, mixup, geometry, HSV and
 flips in worker processes); ``--device-aug`` moves it to the device.
-Writes ``results.csv``, ``last.ckpt`` and ``best.ckpt`` (the JAX package's
-checkpoint format) under ``<project>/<name>``, and prints, last, one JSON
-line: best fitness, the last validation's metrics and the run directory.
-``--evolve N`` instead runs N generations of hyperparameter evolution under
-``runs/evolve/<name>`` (``evolve.csv``, ``hyp_evolve.yaml``) and prints the
-best hyps and fitness. ``--device`` defaults to ``cuda`` and raises when no
-CUDA device is there. ``--upload-dataset`` (cloud loggers) raises
-``NotImplementedError``.
+Writes ``results.csv``, TensorBoard events, ``last.ckpt`` and ``best.ckpt``
+(the JAX package's checkpoint format) and, unless ``--noplots``, ``results.png`` and ``labels.png`` under
+``<project>/<name>``, and prints, last, one JSON line: best fitness, the
+last validation's metrics and the run directory. ``--evolve N`` instead
+runs N generations of hyperparameter evolution under ``runs/evolve/<name>``
+(``evolve.csv``, ``evolve.png``, ``hyp_evolve.yaml``) and prints the best
+hyps and fitness. ``--device`` defaults to ``cuda`` and raises when no CUDA
+device is there. ``--upload-dataset`` logs the dataset to the cloud loggers
+whose SDK imports.
+
+Under torchrun (``WORLD_SIZE`` > 1) each process trains on
+``cuda:LOCAL_RANK`` with NCCL between the cards (gloo on the CPU, or with
+``YOLOV5_TPU_DIST_BACKEND=gloo``); ``--batch-size`` is the global batch,
+split evenly over the ranks, and batch norm always takes the global
+batch's statistics. Rank 0 validates, saves and logs, and prints the JSON
+line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+from yolov5_tpu_torch.parallel.distributed import init_distributed, is_main
 
 
 def parse_opt(argv=None):
@@ -32,10 +45,11 @@ def parse_opt(argv=None):
                    help="dataset yaml (optional with --resume: the saved opt.yaml supplies it)")
     p.add_argument("--hyp", default=None, help="hyp preset name or yaml")
     p.add_argument("--label-smoothing", type=float, default=0.0, help="cls BCE eps")
-    p.add_argument("--noplots", action="store_true", help="no plots (none are written yet)")
+    p.add_argument("--noplots", action="store_true", help="no results.png / labels.png")
     p.add_argument("--rect", action="store_true",
                    help="rectangular training (no mosaic, no shuffle)")
-    p.add_argument("--sync-bn", action="store_true", help="no-op on one device")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="batch norm over the global batch (always on)")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--imgsz", "--img", type=int, default=640)
@@ -54,7 +68,8 @@ def parse_opt(argv=None):
     p.add_argument("--resume", nargs="?", const=True, default="",
                    help="resume the most recent (or the given) run from its last.ckpt; "
                         "the run's saved opt.yaml overrides other train flags")
-    p.add_argument("--upload-dataset", action="store_true", help="cloud loggers (not ported)")
+    p.add_argument("--upload-dataset", action="store_true",
+                   help="log the dataset to the cloud loggers")
     p.add_argument("--max-labels", type=int, default=None,
                    help="fixed label capacity per image (default: auto from dataset)")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
@@ -82,6 +97,7 @@ def main(argv=None):
     opt = parse_opt(argv)
     if not opt.data and not opt.resume:
         raise SystemExit("error: --data is required unless --resume is given")
+    init_distributed(opt.device)
     if opt.evolve:
         from yolov5_tpu_torch.train.evolve import run_evolve
 
@@ -110,7 +126,8 @@ def main(argv=None):
     summary = {"best_fitness": best_fitness, "save_dir": str(save_dir)}
     summary.update({k: v for k, v in results.items() if k in ("mp", "mr", "map50", "map",
                                                                "fitness", "images")})
-    print(json.dumps(summary))
+    if is_main():
+        print(json.dumps(summary))
 
 
 if __name__ == "__main__":

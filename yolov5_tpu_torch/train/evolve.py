@@ -5,8 +5,8 @@ train.py:674-903): each generation mutates a parent drawn from the five
 best results so far (weighted by fitness), trains a short run, and appends
 (fitness, hyps) to ``evolve.csv``; an existing ``evolve.csv`` resumes the
 search. Draws come from ``np.random.default_rng(seed)`` in the JAX module's
-order, so equal seeds mutate equal hyps. The JAX module's ``evolve.png``
-scatter is not drawn (plots are not ported).
+order, so equal seeds mutate equal hyps. ``evolve.png`` (``utils.plots``)
+scatters each hyp against fitness after the search.
 """
 
 from __future__ import annotations
@@ -98,4 +98,7 @@ def run_evolve(data, cfg="yolov5n", hyp=None, generations=30, epochs=10, batch_s
 
     best_fit, best_hyp = max(history, key=lambda r: r[0])
     (save_dir / "hyp_evolve.yaml").write_text(yaml.safe_dump(best_hyp))
+    from yolov5_tpu_torch.utils.plots import plot_evolve
+
+    plot_evolve(csv_path)  # evolve.png scatter panel (reference plots.py:247)
     return best_hyp, best_fit

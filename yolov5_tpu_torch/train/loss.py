@@ -16,6 +16,12 @@ utils/segment/loss.py):
   rest counted in ``seg_overflow``;
 - the total is scaled by the batch size (the reference's ``loss * bs``);
 - ``classification_loss``: cross entropy with label smoothing, in float32.
+When several processes train (``parallel.distributed``), each normaliser
+(the matched candidates of each level, the cells, the batch, the mask
+candidates) is that of the global batch: one all-reduce a call, without
+gradient. Each rank's loss is then its share of the global batch's loss, and
+the ranks' gradients are summed (``parallel.mesh.all_reduce_grads``), as the
+JAX package computes the loss over the whole sharded batch.
 Every reduction is a masked mean over the fixed lattice of
 ``train.assigner``, so the loss has static shapes and no host sync.
 
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 
 from yolov5_tpu_torch.ops.boxes import bbox_iou, smooth_bce
 from yolov5_tpu_torch.ops.masks import crop_mask
+from yolov5_tpu_torch.parallel.distributed import all_reduce_sum, world
 from yolov5_tpu_torch.train.assigner import build_targets_level
 
 # per-level objectness balance (reference loss.py:119-121)
@@ -68,8 +75,20 @@ def bce_blur_with_logits(x, z, alpha=0.05, pos_weight=1.0):
     return loss * (1.0 - torch.exp((dx - 1.0) / (alpha + 1e-4)))
 
 
-def masked_mean(x, mask, eps=1e-9):
-    return (x * mask).sum() / (mask.sum() + eps)
+def masked_mean(x, mask, eps=1e-9, count=None):
+    """sum(x * mask) / count, ``count`` defaulting to the mask's sum."""
+    return (x * mask).sum() / ((mask.sum() if count is None else count) + eps)
+
+
+def global_norms(parts: dict) -> dict:
+    """The loss's normalisers summed over the ranks: one all-reduce of the
+    concatenated float32 values, without gradient."""
+    flat = all_reduce_sum(torch.cat([v.reshape(-1).float() for v in parts.values()]))
+    out, offset = {}, 0
+    for k, v in parts.items():
+        out[k] = flat[offset:offset + v.numel()].view(v.shape)
+        offset += v.numel()
+    return out
 
 
 class ComputeLoss:
@@ -91,10 +110,34 @@ class ComputeLoss:
         """raw_maps: list of (bs, ny, nx, na, no) logits; targets (bs, M, 5)
         [cls, x, y, w, h] normalized; valid (bs, M) bool. Returns (total,
         {"box", "obj", "cls"}), all float32 scalars on the maps' device."""
+        asns = self.assign(raw_maps, targets, valid)
+        norms = global_norms(self.local_norms(raw_maps, asns)) if world() > 1 else None
+        return self.detection(raw_maps, asns, norms)
+
+    def assign(self, raw_maps, targets, valid):
+        """Each level's candidate lattice (``build_targets_level``)."""
+        targets = targets.float()
+        return [build_targets_level(targets, valid,
+                                    torch.tensor(self.anchors[i], dtype=torch.float32,
+                                                 device=pred.device),
+                                    pred.shape[1], pred.shape[2], self.hyp.get("anchor_t", 4.0))
+                for i, pred in enumerate(raw_maps)]
+
+    @staticmethod
+    def local_norms(raw_maps, asns):
+        """This rank's normalisers: the matched candidates and the cells of
+        each level, and the batch."""
+        dev = raw_maps[0].device
+        return {"matched": torch.stack([a["mask"].float().sum() for a in asns]),
+                "cells": torch.tensor([float(p[..., 0].numel()) for p in raw_maps], device=dev),
+                "bs": torch.tensor(float(raw_maps[0].shape[0]), device=dev)}
+
+    def detection(self, raw_maps, asns, norms=None):
+        """The loss over the assigned lattices ``asns``; ``norms`` (the
+        global batch's, from ``global_norms``) replaces the local means."""
         hyp = self.hyp
         bs = raw_maps[0].shape[0]
         dev = raw_maps[0].device
-        targets = targets.float()
         lbox = torch.zeros((), device=dev)
         lobj = torch.zeros((), device=dev)
         lcls = torch.zeros((), device=dev)
@@ -104,8 +147,8 @@ class ComputeLoss:
         for i, pred in enumerate(raw_maps):
             _, ny, nx, na, no = pred.shape
             anchors = torch.tensor(self.anchors[i], dtype=torch.float32, device=dev)
-            asn = build_targets_level(targets, valid, anchors, ny, nx,
-                                      hyp.get("anchor_t", 4.0))
+            asn = asns[i]
+            matched = None if norms is None else norms["matched"][i]
             m_flat = asn["mask"].reshape(bs, -1).float()  # (bs, C)
             a_flat = asn["a"].reshape(bs, -1)
             # candidate -> flat (cell, anchor) index of the (bs, ny*nx*na, no) map
@@ -123,7 +166,7 @@ class ComputeLoss:
             safe = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)
             tbox = torch.where(m_flat[..., None] > 0, tbox, safe)
             iou = bbox_iou(pbox, tbox, xywh=True, CIoU=True).squeeze(-1)  # (bs, C)
-            lbox = lbox + masked_mean(1.0 - iou, m_flat)
+            lbox = lbox + masked_mean(1.0 - iou, m_flat, count=matched)
 
             # objectness target: the detached IoU at assigned cells, max-combined
             iou_d = iou.detach().clamp(min=0.0) * m_flat
@@ -133,7 +176,8 @@ class ComputeLoss:
             obj_bce = bce_with_logits(pobj, tobj, hyp.get("obj_pw", 1.0))
             if fl_gamma > 0:
                 obj_bce = obj_bce * fscale(pobj, tobj, fl_gamma)
-            lobj = lobj + obj_bce.mean() * self.balance[i]
+            obj_mean = obj_bce.mean() if norms is None else obj_bce.sum() / norms["cells"][i]
+            lobj = lobj + obj_mean * self.balance[i]
 
             # classification (one-vs-all BCE), only when multi-class
             if self.nc > 1:
@@ -145,12 +189,12 @@ class ComputeLoss:
                 cls_bce = bce_with_logits(pcls, tcls, hyp.get("cls_pw", 1.0))
                 if fl_gamma > 0:
                     cls_bce = cls_bce * fscale(pcls, tcls, fl_gamma)
-                lcls = lcls + masked_mean(cls_bce.mean(-1), m_flat)
+                lcls = lcls + masked_mean(cls_bce.mean(-1), m_flat, count=matched)
 
         lbox = lbox * hyp.get("box", 0.05)
         lobj = lobj * hyp.get("obj", 1.0)
         lcls = lcls * hyp.get("cls", 0.5)
-        total = (lbox + lobj + lcls) * bs * self.gain
+        total = (lbox + lobj + lcls) * (bs if norms is None else norms["bs"]) * self.gain
         return total, {"box": lbox, "obj": lobj, "cls": lcls}
 
 
@@ -172,9 +216,16 @@ class ComputeSegmentLoss(ComputeLoss):
         Returns (total, {"box", "obj", "cls", "seg", "seg_overflow"}), or the
         detection loss alone without ``gt_masks``."""
         raw_maps, proto = raw
-        total, comps = super().__call__(raw_maps, targets, valid)
         if gt_masks is None:
-            return total, comps
+            return super().__call__(raw_maps, targets, valid)
+        asns = self.assign(raw_maps, targets, valid)
+        norms = None
+        if world() > 1:
+            # the mask candidates of each image, cut to seg_k a level
+            cut = sum(a["mask"].reshape(a["mask"].shape[0], -1).float().sum(1).clamp(
+                max=min(self.seg_k, a["mask"][0].numel())).sum() for a in asns)
+            norms = global_norms(dict(self.local_norms(raw_maps, asns), seg=cut))
+        total, comps = self.detection(raw_maps, asns, norms)
         hyp = self.hyp
         proto = proto.float()
         bs, hm, wm, nm = proto.shape
@@ -192,9 +243,7 @@ class ComputeSegmentLoss(ComputeLoss):
 
         for i, pred in enumerate(raw_maps):
             _, ny, nx, na, no = pred.shape
-            anchors = torch.tensor(self.anchors[i], dtype=torch.float32, device=dev)
-            asn = build_targets_level(targets, valid, anchors, ny, nx,
-                                      hyp.get("anchor_t", 4.0))
+            asn = asns[i]
             mask = asn["mask"].reshape(bs, -1).float()
             lin = ((asn["gj"] * nx + asn["gi"]) * na + asn["a"]).reshape(bs, -1)
             m = targets.shape[1]
@@ -227,18 +276,22 @@ class ComputeSegmentLoss(ComputeLoss):
             lseg = lseg + (per_cand * mask).sum()
             denom = denom + mask.sum()
 
+        if norms is not None:
+            denom, bs = norms["seg"], norms["bs"]
         lseg = lseg / denom.clamp(min=1.0) * hyp.get("box", 0.05)
         total = total + lseg * bs
         return total, dict(comps, seg=lseg, seg_overflow=overflow)
 
 
-def classification_loss(logits, labels, label_smoothing=0.0):
+def classification_loss(logits, labels, label_smoothing=0.0, count=None):
     """Mean cross entropy in float32 against labels smoothed to
     (1 - α)·onehot + α/nc (optax ``smooth_labels``, as the JAX package's
-    classify step applies it; α = 0 is plain cross entropy)."""
+    classify step applies it; α = 0 is plain cross entropy). ``count``: the
+    global batch's size, when this batch is one rank's share of it."""
     logp = torch.log_softmax(logits.float(), -1)
     nc = logits.shape[-1]
     y = F.one_hot(labels.long(), nc).float()
     if label_smoothing:
         y = y * (1.0 - label_smoothing) + label_smoothing / nc
-    return -(y * logp).sum(-1).mean()
+    ce = -(y * logp).sum(-1)
+    return ce.mean() if count is None else ce.sum() / count

@@ -1,6 +1,6 @@
 """The detection training loop: ``run(**kwargs)``, the port of
-``yolov5_tpu/train/run.py`` (the reference's train.py:105-528) on one
-explicit device.
+``yolov5_tpu/train/run.py`` (the reference's train.py:105-528), on one
+device or on one device per process under torchrun.
 
 Two ways to augment. By default, as in the JAX package, the host augments:
 ``data.dataset`` builds mosaic (copy-paste, mixup), random_perspective, HSV
@@ -17,10 +17,21 @@ model trains in bf16 autocast with float32 master weights. After each
 epoch the EMA weights, with BN folded, are validated through
 ``eval.evaluator.evaluate`` (the stem kernel K2 and the suppression kernel
 K1 on CUDA). ``last.ckpt`` keeps the optimizer state for ``--resume``;
-``best.ckpt`` does not. Both are in the JAX package's format.
+``best.ckpt`` does not. Both are in the JAX package's format. Each epoch's
+row goes to ``results.csv``, a TensorBoard event file and the cloud loggers
+whose SDK imports (``utils.loggers``); ``--resume`` also takes ``comet://``
+and ``wandb-artifact://`` runs. At the end,
+``results.png`` and ``labels.png`` (``utils.plots``) unless ``noplots``.
 
-Not ported, and raising ``NotImplementedError``: the cloud loggers
-(``upload_dataset``) and cloud resumes. Plots are not written.
+Several processes (``WORLD_SIZE`` > 1, torchrun's environment): each rank
+trains on ``cuda:LOCAL_RANK`` (``parallel.distributed``) with its shard of
+each global batch; ``batch_size`` is the global batch, ``batch_size //
+world`` a rank's. Batch norm and the loss take the global batch's
+statistics and normalisers, and the gradients are summed over the ranks,
+so an N-rank run takes the steps one process takes at the global batch.
+Autoanchor, validation, checkpoints, logs and plots run on rank 0; its
+anchors, fitness and results are broadcast, so that every rank stops,
+reweighs images and resamples sizes alike.
 """
 
 from __future__ import annotations
@@ -41,6 +52,10 @@ from yolov5_tpu_torch.eval.evaluator import evaluate
 from yolov5_tpu_torch.infer import Detector
 from yolov5_tpu_torch.models.weights import from_jax_variables, load_torch_state_dict, load_weights
 from yolov5_tpu_torch.models.yolo import DetectionModel
+from yolov5_tpu_torch.parallel.distributed import (all_reduce_sum, broadcast_object,
+                                                   init_distributed, is_main, rank, rank_batch,
+                                                   rank_device, world)
+from yolov5_tpu_torch.parallel.mesh import replicate
 from yolov5_tpu_torch.train.loss import ComputeLoss
 from yolov5_tpu_torch.train.optim import Optimizer
 from yolov5_tpu_torch.train.prefetch import prefetch
@@ -49,10 +64,10 @@ from yolov5_tpu_torch.utils.callbacks import Callbacks
 from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
                                                restore_train_state, save_checkpoint,
                                                variables_from_checkpoint)
-from yolov5_tpu_torch.utils.general import (check_dataset, check_img_size, increment_path,
-                                            init_seeds, labels_to_class_weights)
+from yolov5_tpu_torch.utils.general import (check_dataset, check_img_size, init_seeds,
+                                            labels_to_class_weights, run_dir)
 from yolov5_tpu_torch.utils.hyp import load_hyp
-from yolov5_tpu_torch.utils.loggers import Loggers
+from yolov5_tpu_torch.utils.loggers import Loggers, check_comet_resume, check_wandb_resume
 
 
 def multiscale_sizes(imgsz, gs, n=None):
@@ -167,22 +182,32 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
     """Train a detector on ``device``. Returns (best_fitness, results of the
     last validation, save_dir)."""
     callbacks = callbacks or Callbacks()
-    device = torch.device(device)
+    init_distributed(device)
+    device_arg, device = device, rank_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"train.run(device={str(device)!r}): no CUDA device is available")
     if resume and _resume_ckpt is None:
-        if str(resume).startswith(("comet://", "wandb-artifact://")):
-            raise NotImplementedError(f"train.run: cloud resume {resume} is not ported")
+        # cloud runs first (rank 0 downloads): comet:// brings its opt.yaml
+        # and newest checkpoint, wandb-artifact:// the model artifact's ckpt
+        cloud = broadcast_object((check_comet_resume(resume, project),
+                                  check_wandb_resume(resume, project)) if is_main() else None)
+        if cloud[0] is not None:
+            saved, ckpt_path = cloud[0]
+            saved.pop("resume", None)
+            print(f"resuming from {resume} -> {ckpt_path}")
+            return run(**saved, _resume_ckpt=ckpt_path, save_dir=str(Path(ckpt_path).parent),
+                       callbacks=callbacks, device=device_arg)
+        resume = cloud[1] or resume
         saved, ckpt_path = resume_options(resume, project)
         if saved is not None:
             return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(ckpt_path.parent),
-                       callbacks=callbacks, device=device)
+                       callbacks=callbacks, device=device_arg)
         _resume_ckpt = str(ckpt_path)
         save_dir = save_dir or str(ckpt_path.parent)
-    if upload_dataset:
-        raise NotImplementedError("train.run: --upload-dataset (cloud loggers) is not ported")
+    n_ranks, main = world(), is_main()
+    rank_bs = rank_batch(batch_size)
     if sync_bn:
-        print("--sync-bn: one device, nothing to synchronise")
+        print("--sync-bn: cross-device BN stats are always on")
     init_seeds(seed)
     data_dict = check_dataset(data)
     nc = 1 if single_cls else int(data_dict["nc"])
@@ -194,18 +219,25 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
         val_batch_size=val_batch_size, freeze=freeze, multi_scale=multi_scale,
         image_weights=image_weights, cache=cache, noautoanchor=noautoanchor,
         device_aug=device_aug, quad=quad, rect=rect, label_smoothing=label_smoothing,
+        upload_dataset=upload_dataset,
     ).items()}
     hyp = load_hyp(hyp)
     if label_smoothing:
         hyp["label_smoothing"] = float(label_smoothing)
     amp = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
 
-    save_dir = Path(save_dir) if save_dir else increment_path(Path(project) / name,
-                                                              exist_ok=exist_ok)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
-    (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
-    loggers = Loggers(save_dir)
+    save_dir = run_dir(save_dir, project, name, exist_ok)
+    loggers = None
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
+        (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
+        loggers = Loggers(save_dir)
+        # the run's config as assets: what a comet:// resume reads back
+        loggers.log_asset(save_dir / "opt.yaml")
+        loggers.log_asset(save_dir / "hyp.yaml")
+        if upload_dataset:
+            loggers.log_dataset(data_dict, yaml_file=data_dict.get("yaml_file"))
     last, best = save_dir / "last.ckpt", save_dir / "best.ckpt"
 
     # model: unfused, float32 master weights
@@ -239,21 +271,24 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
     if rect:
         hyp = dict(hyp, mosaic=0.0)  # reference: rect turns the mosaic off
     train_ds, train_loader = create_loader(
-        data_dict["train"], img_size=imgsz, batch_size=batch_size, augment=True, hyp=hyp,
-        workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
+        data_dict["train"], img_size=imgsz, batch_size=rank_bs, augment=True,
+        hyp=hyp, workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
         cache=cache if cache in (None, False, "ram", "disk") else False,
-        device_aug=device_aug, quad=quad, rect=rect, shuffle=not rect)
+        device_aug=device_aug, quad=quad, rect=rect, shuffle=not rect, shard=(rank(), n_ranks))
     max_labels = train_loader.max_labels
     if not noautoanchor and not _resume_ckpt and not weights:
         from yolov5_tpu_torch.utils.autoanchor import check_anchors
 
-        new_anchors = check_anchors(train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz)
+        # drawn at random: rank 0 draws, every rank trains its anchors
+        new_anchors = broadcast_object(check_anchors(
+            train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz) if main else None)
         if new_anchors != model.anchors:
             model.anchors = new_anchors
             model.cfg["anchors"] = anchors_to_yaml(new_anchors)
             print("autoanchor: anchors updated")
     val_loader = None
-    if data_dict.get("val") and not noval:
+    has_val = bool(data_dict.get("val")) and not noval
+    if has_val and main:
         _, val_loader = create_loader(data_dict["val"], img_size=imgsz,
                                       batch_size=val_batch_size or batch_size, workers=workers,
                                       max_labels=max_labels, single_cls=single_cls)
@@ -279,6 +314,7 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
         # continues as if never interrupted
         restore_train_state(state, resume_payload)
         resume_payload = None
+    replicate(state)
 
     cache_dev = None
     if device_aug and cache in (None, "device"):
@@ -309,8 +345,10 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
 
     stopper = EarlyStopper(patience)
     callbacks.run("on_train_start")
-    print(f"training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} steps/epoch, "
-          f"{device}, imgsz {imgsz}")
+    if main:
+        print(f"training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} "
+              f"steps/epoch, {device}" + (f" x {n_ranks} ranks" if n_ranks > 1 else "")
+              + f", imgsz {imgsz}")
 
     results = {}
     t_start = time.time()
@@ -332,7 +370,10 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
             t0 = time.time()
             if cache_dev is not None:
                 # one upload of the epoch's index batches; each step slices its row
-                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader)])
+                # with several ranks, the global batches: each rank augments
+                # the global batch and keeps its rows (train.trainer)
+                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader,
+                                                                      whole=n_ranks > 1)])
                 plan = (multiscale_epoch_plan(idx_epoch, ms_sizes, ms_rng) if ms_device
                         else [(None, idx_epoch)])  # with ms_device, a share per size
                 feed = (({"idx": idx}, size) for size, rows in plan
@@ -345,41 +386,62 @@ def run(data, cfg="yolov5n", hyp=None, weights="", epochs=100, batch_size=16, im
                 _, metrics = step_fns[size](state, batch, cache_dev)
                 agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
                 callbacks.run("on_train_batch_end")
-            agg = {k: v.item() for k, v in agg.items()}  # the epoch's one wait for the device
+            # the epoch's one wait for the device: the ranks' shares summed
+            keys = ("box", "obj", "cls", "total")
+            sums = all_reduce_sum(torch.stack([agg[k] for k in keys])).tolist()
             dt = time.time() - t0
-            row = {f"train/{k}": agg[k] / nb for k in ("box", "obj", "cls", "total")}
+            row = {f"train/{k}": v / nb for k, v in zip(keys, sums)}
             row["train/imgs_per_sec"] = nb * batch_size / dt
             callbacks.run("on_train_epoch_end", epoch=epoch)
 
-            # validate the EMA weights (the reference validates ema, train.py:446)
-            fi = 0.0
-            if val_loader is not None:
-                det = ema_detector(state, imgsz, amp == torch.bfloat16, device)
-                results = evaluate(det.forward, val_loader, device)
-                row.update({f"val/{k}": results[k] for k in ("mp", "mr", "map50", "map")})
-                fi = results["fitness"]
-            row["fitness"] = fi
-            loggers.log_metrics(row, epoch)
-            print(f"epoch {epoch + 1}/{epochs}  "
-                  + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+            fi, stop = 0.0, False
+            if main:  # the other ranks wait for its fitness below
+                # validate the EMA weights (the reference validates ema, train.py:446)
+                if val_loader is not None:
+                    det = ema_detector(state, imgsz, amp == torch.bfloat16, device)
+                    results = evaluate(det.forward, val_loader, device)
+                    row.update({f"val/{k}": results[k] for k in ("mp", "mr", "map50", "map")})
+                    fi = results["fitness"]
+                row["fitness"] = fi
+                loggers.log_metrics(row, epoch)
+                print(f"epoch {epoch + 1}/{epochs}  "
+                      + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
 
-            best_fitness = max(best_fitness, fi)
-            if not nosave:
-                save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
-                if val_loader is not None and best_fitness == fi:
-                    save_checkpoint(best, state, epoch, best_fitness)
-                if save_period > 0 and epoch % save_period == 0:
-                    save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
-                                    best_fitness)
-                callbacks.run("on_model_save", epoch=epoch)
+                best_fitness = max(best_fitness, fi)
+                if not nosave:
+                    save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
+                    if val_loader is not None and best_fitness == fi:
+                        save_checkpoint(best, state, epoch, best_fitness)
+                    if save_period > 0 and epoch % save_period == 0:
+                        save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
+                                        best_fitness)
+                        # the period's cloud model artifact (reference
+                        # on_model_save -> wandb log_model)
+                        loggers.log_model(last, epoch=epoch, fitness=fi,
+                                          best=best_fitness == fi, opt=opt_dict)
+                    callbacks.run("on_model_save", epoch=epoch)
+                stop = stopper(epoch, fi)
+                if stop:
+                    print(f"early stopping at epoch {epoch + 1} "
+                          f"(no fitness gain in {patience} epochs)")
+            fi, best_fitness, stop, results = broadcast_object(
+                (fi, best_fitness, stop, results))
             callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fi)
-            if stopper(epoch, fi):
-                print(f"early stopping at epoch {epoch + 1} "
-                      f"(no fitness gain in {patience} epochs)")
+            if stop:
                 break
     finally:
         train_loader.close()
 
-    print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
+    if main:
+        print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
+        if not noplots:
+            from yolov5_tpu_torch.utils.plots import plot_labels, plot_results
+
+            plot_results(save_dir / "results.csv")
+            plot_labels(train_ds.labels, model.names, save_dir)
     callbacks.run("on_train_end")
+    if main:
+        if best.exists():
+            loggers.log_model(best, epoch=epoch, fitness=best_fitness, best=True, opt=opt_dict)
+        loggers.close()
     return best_fitness, results, save_dir

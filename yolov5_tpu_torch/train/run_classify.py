@@ -1,6 +1,7 @@
 """Classification training and validation: ``run`` and
 ``validate_classify``, the port of ``yolov5_tpu/train/run_classify.py`` (the
-reference's classify/train.py and classify/val.py) on one explicit device.
+reference's classify/train.py and classify/val.py), on one device or on one
+device per process under torchrun.
 
 The model is the detection backbone cut at ``cutoff`` with a Classify head
 (``models.yolo.ClassificationModel``), trained unfused with train-mode BN,
@@ -12,7 +13,16 @@ augments it on the device (``classify_device_augment``, drawn from
 flips each batch. Each epoch the EMA weights, BN folded (so the stem runs
 K2 on CUDA), score the val split's center crops: top-1 and top-5.
 ``last.ckpt`` and ``best.ckpt`` are the JAX package's format without
-optimizer state, with cfg, nc, names and imgsz in their meta.
+optimizer state, with cfg, nc, names and imgsz in their meta; each epoch's
+row goes to the loggers of ``utils.loggers``.
+
+Several ranks (``WORLD_SIZE`` > 1): ``batch_size`` is the global batch.
+With the device cache every rank gathers and augments the global batch and
+keeps its rows (r, r + world, ...); on the host, rank r loads those rows
+and draws the crops of the others without decoding them, so the crops are
+the one-process run's. Batch norm and the cross entropy's mean are over the
+global batch, the gradients are summed, and rank 0 validates, saves and
+logs.
 """
 
 from __future__ import annotations
@@ -31,12 +41,16 @@ from yolov5_tpu_torch.infer import resolve_device
 from yolov5_tpu_torch.models.weights import (from_jax_variables, fuse_conv_bn,
                                              load_torch_state_dict, load_weights)
 from yolov5_tpu_torch.models.yolo import ClassificationModel
+from yolov5_tpu_torch.parallel.distributed import (all_reduce_sum, broadcast_object,
+                                                   init_distributed, is_main, rank, rank_batch,
+                                                   rank_device, world)
+from yolov5_tpu_torch.parallel.mesh import all_reduce_grads, rank_rows, replicate
 from yolov5_tpu_torch.train.loss import classification_loss
 from yolov5_tpu_torch.train.optim import Optimizer, ema_update
 from yolov5_tpu_torch.train.trainer import batch_stats, init_train_state
 from yolov5_tpu_torch.utils.checkpoint import (load_checkpoint, save_checkpoint,
                                                variables_from_checkpoint)
-from yolov5_tpu_torch.utils.general import increment_path, init_seeds
+from yolov5_tpu_torch.utils.general import init_seeds, run_dir
 from yolov5_tpu_torch.utils.loggers import Loggers
 
 
@@ -91,7 +105,10 @@ def make_classify_step(label_smoothing=0.0, dtype=torch.float32, seed=0, device_
     {"idx": (B,)} into ``cache`` ({"images", "labels"} on the device);
     ``device_aug`` crops, flips and jitters on the device, drawn from
     ``aug_generator(seed, state.step)``. ``dtype`` bfloat16 runs the forward
-    under autocast. Metrics (loss, acc) stay on the device."""
+    under autocast. Metrics (loss, acc) stay on the device. With several
+    ranks, ``batch`` with ``cache`` is the global index batch (the rank
+    augments it whole and keeps its rows), else the rank's rows; the metrics
+    are the rank's shares of the global batch's."""
     amp = dtype == torch.bfloat16
 
     def step(state, batch, cache=None):
@@ -102,17 +119,23 @@ def make_classify_step(label_smoothing=0.0, dtype=torch.float32, seed=0, device_
         if device_aug:
             images = classify_device_augment(images,
                                              aug_generator(seed, state.step, images.device))
+        count = None
+        if world() > 1:
+            if cache is not None:
+                images, labels = rank_rows(images), rank_rows(labels)
+            count = all_reduce_sum(torch.tensor(float(len(labels)), device=labels.device))
         x = normalize(images.permute(0, 3, 1, 2), torch.float32)
         model.train()
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
             logits = model(x.contiguous(memory_format=torch.channels_last))
-        loss = classification_loss(logits, labels, label_smoothing)
-        grads = torch.autograd.grad(loss, state.opt.params)
+        loss = classification_loss(logits, labels, label_smoothing, count=count)
+        grads = all_reduce_grads(torch.autograd.grad(loss, state.opt.params))
         tick = state.opt.step(grads)
         state.ema = ema_update(state.ema, dict(model.named_parameters()), batch_stats(model),
                                tick=tick)
         state.step += 1
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        hits = (logits.detach().argmax(-1) == labels).float()
+        acc = hits.mean() if count is None else hits.sum() / count
         return state, {"loss": loss.detach(), "acc": acc}
 
     return step
@@ -127,7 +150,10 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
     ``data`` is an ImageFolder root with train/ (or the classes itself) and
     optionally val/. Validation drops the val split's partial last batch, as
     the JAX package's does; ``best.ckpt`` is written on a tie."""
-    dev = resolve_device(device, "run_classify.run")
+    init_distributed(device)
+    dev = resolve_device(rank_device(device), "run_classify.run")
+    n_ranks, main = world(), is_main()
+    rank_bs = rank_batch(batch_size)
     init_seeds(seed)
     data = Path(data)
     train_dir = data / "train" if (data / "train").exists() else data
@@ -136,10 +162,11 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
     val_ds = ImageFolder(val_dir, imgsz) if val_dir else None
     nc = len(train_ds.classes)
 
-    save_dir = Path(save_dir) if save_dir else increment_path(Path(project) / name,
-                                                              exist_ok=exist_ok)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    loggers = Loggers(save_dir)
+    save_dir = run_dir(save_dir, project, name, exist_ok)
+    loggers = None
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        loggers = Loggers(save_dir)
 
     amp = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     model = ClassificationModel(cfg, nc=nc, seed=seed)
@@ -152,6 +179,7 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
     opt = Optimizer(dict(model.named_parameters()), hyp, epochs=epochs, steps_per_epoch=nb,
                     batch_size=64, name=optimizer, cos_lr=True)
     state = init_train_state(model, opt)
+    replicate(state)
 
     cache = None
     if device_aug:
@@ -160,13 +188,13 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
             images, labels = build_cls_cache(train_ds)
             cache = {"images": torch.from_numpy(images).to(dev),
                      "labels": torch.from_numpy(labels).to(dev)}
-            if verbose:
+            if verbose and main:
                 print(f"device cache: {len(train_ds)} images ({need / 1e6:.0f} MB) resident "
                       f"on {dev}")
     step = make_classify_step(label_smoothing, amp, seed, device_aug=cache is not None)
 
     val_batches = None
-    if val_ds:  # decoded once, kept on the device
+    if val_ds and main:  # decoded once, kept on the device
         val_batches = [(torch.from_numpy(b["images"]).to(dev), b["labels"])
                        for b in val_ds.batches(batch_size)]
     best_top1, best_epoch = 0.0, -1
@@ -178,17 +206,21 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
             idx = np.random.default_rng(seed + epoch).permutation(len(train_ds))
             k = len(idx) // batch_size
             idx = torch.from_numpy(idx[:k * batch_size].reshape(k, batch_size)).to(dev)
-            batches = ({"idx": i} for i in idx)
+            batches = ({"idx": i} for i in idx)  # global batches: the step keeps its rows
         else:
             batches = ({"images": torch.from_numpy(b["images"]).to(dev),
                         "labels": torch.from_numpy(b["labels"]).to(dev)}
-                       for b in train_ds.batches(batch_size, shuffle=True, seed=seed,
-                                                 epoch=epoch))
+                       for b in train_ds.batches(rank_bs, shuffle=True, seed=seed,
+                                                 epoch=epoch, shard=(rank(), n_ranks)))
         for batch in batches:
             state, m = step(state, batch, cache)
             agg = m if agg is None else {k: agg[k] + m[k] for k in agg}
             n += 1
-        agg = {k: float(v) for k, v in agg.items()} if agg else {"loss": 0.0, "acc": 0.0}
+        if agg:  # the ranks' shares summed
+            agg = dict(zip(("loss", "acc"), all_reduce_sum(
+                torch.stack([agg["loss"], agg["acc"]])).tolist()))
+        else:
+            agg = {"loss": 0.0, "acc": 0.0}
         row = {"train/loss": agg["loss"] / max(n, 1), "train/acc": agg["acc"] / max(n, 1),
                "train/imgs_per_sec": n * batch_size / (time.time() - t0)}
         if val_batches is not None:
@@ -196,9 +228,9 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
                                    model.cutoff, dev)
             top1 = top5 = total = 0
             for images, labels in val_batches:
-                rank = np.argsort(-classify_logits(ema, images).cpu().numpy(), axis=-1)
-                top1 += int((rank[:, 0] == labels).sum())
-                top5 += int((rank[:, :5] == labels[:, None]).any(1).sum())
+                order = np.argsort(-classify_logits(ema, images).cpu().numpy(), axis=-1)
+                top1 += int((order[:, 0] == labels).sum())
+                top5 += int((order[:, :5] == labels[:, None]).any(1).sum())
                 total += len(labels)
             row["val/top1"] = top1 / max(total, 1)
             row["val/top5"] = top5 / max(total, 1)
@@ -206,14 +238,20 @@ def run(data, cfg="yolov5s", epochs=10, batch_size=64, imgsz=224, lr0=0.001, opt
                 best_top1, best_epoch = row["val/top1"], epoch
                 if not nosave:
                     save_checkpoint(best, state, epoch, best_top1, extra={"imgsz": imgsz})
-        loggers.log_metrics(row, epoch)
-        if verbose:
-            print(f"epoch {epoch + 1}/{epochs}  " +
-                  "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
-    if not nosave:
-        save_checkpoint(last, state, epochs - 1, best_top1, extra={"imgsz": imgsz})
-        if best_epoch < 0:  # no val split: best is last
-            save_checkpoint(best, state, epochs - 1, best_top1, extra={"imgsz": imgsz})
+        if main:
+            loggers.log_metrics(row, epoch)
+            if verbose:
+                print(f"epoch {epoch + 1}/{epochs}  " +
+                      "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+        best_top1, best_epoch = broadcast_object((best_top1, best_epoch))
+    if main:
+        if not nosave:
+            save_checkpoint(last, state, epochs - 1, best_top1, extra={"imgsz": imgsz})
+            if best_epoch < 0:  # no val split: best is last
+                save_checkpoint(best, state, epochs - 1, best_top1, extra={"imgsz": imgsz})
+        if last.exists():
+            loggers.log_model(last)
+        loggers.close()
     return best_top1, save_dir
 
 

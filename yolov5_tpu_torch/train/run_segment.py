@@ -1,6 +1,7 @@
 """Segmentation training and validation: ``run(**kwargs)`` and
 ``evaluate_segment``, the port of ``yolov5_tpu/train/run_segment.py`` (the
-reference's segment/train.py and segment/val.py) on one explicit device.
+reference's segment/train.py and segment/val.py), on one device or on one
+device per process under torchrun.
 
 Training is ``train/run.py``'s loop with masks: the loader fills each
 batch's GT masks from its polygons (``data.dataset.rasterize_masks``), the
@@ -14,8 +15,11 @@ at conf 0.001, IoU 0.6, max_det 300 (K1), box mAP against the labels and
 mask mAP against the GT masks at image resolution, the mask IoUs counted in
 float32 on the device image by image. ``last.ckpt`` keeps the optimizer;
 both files carry the model's cfg and live anchors, so that ``segment val``
-rebuilds the model. Plots are not written (``noplots`` is always in
-effect).
+rebuilds the model. Loggers and plots (``results.png``, ``labels.png``
+unless ``noplots``) as in ``train/run.py``; several ranks as there too:
+each trains on its shard of the global batch (``batch_size``), the mask
+loss's normaliser is the global batch's, and rank 0 validates, saves and
+logs.
 """
 
 from __future__ import annotations
@@ -41,6 +45,10 @@ from yolov5_tpu_torch.infer_segment import Segmenter
 from yolov5_tpu_torch.models.yolo import SegmentationModel
 from yolov5_tpu_torch.ops.masks import process_mask
 from yolov5_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression
+from yolov5_tpu_torch.parallel.distributed import (all_reduce_sum, broadcast_object,
+                                                   init_distributed, is_main, rank, rank_batch,
+                                                   rank_device, world)
+from yolov5_tpu_torch.parallel.mesh import replicate
 from yolov5_tpu_torch.train.loss import ComputeSegmentLoss
 from yolov5_tpu_torch.train.optim import Optimizer
 from yolov5_tpu_torch.train.prefetch import prefetch
@@ -49,7 +57,7 @@ from yolov5_tpu_torch.train.run import (EarlyStopper, load_initial_weights, mult
 from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
 from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
                                                restore_train_state, save_checkpoint)
-from yolov5_tpu_torch.utils.general import check_dataset, check_img_size, increment_path, init_seeds
+from yolov5_tpu_torch.utils.general import check_dataset, check_img_size, init_seeds, run_dir
 from yolov5_tpu_torch.utils.hyp import load_hyp
 from yolov5_tpu_torch.utils.loggers import Loggers
 
@@ -236,7 +244,8 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
         sync_bn=False, multi_scale=False, device="cuda", _resume_ckpt=None):
     """Train an instance-segmentation model on ``device``. Returns
     (best_fitness, results of the last validation, save_dir)."""
-    device = torch.device(device)
+    init_distributed(device)
+    device_arg, device = device, rank_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"run_segment.run(device={str(device)!r}): no CUDA device is "
                            "available")
@@ -244,11 +253,13 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
         saved, ckpt_path = resume_options(resume, project)
         if saved is not None:
             return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(ckpt_path.parent),
-                       device=device)
+                       device=device_arg)
         _resume_ckpt = str(ckpt_path)
         save_dir = save_dir or str(ckpt_path.parent)
+    n_ranks, main = world(), is_main()
+    rank_bs = rank_batch(batch_size)
     if sync_bn:
-        print("--sync-bn: one device, nothing to synchronise")
+        print("--sync-bn: cross-device BN stats are always on")
     init_seeds(seed)
     data_dict = check_dataset(data)
     nc = 1 if single_cls else int(data_dict["nc"])
@@ -268,12 +279,13 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
     amp = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     overlap = not no_overlap
 
-    save_dir = Path(save_dir) if save_dir else increment_path(Path(project) / name,
-                                                              exist_ok=exist_ok)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
-    (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
-    loggers = Loggers(save_dir)
+    save_dir = run_dir(save_dir, project, name, exist_ok)
+    loggers = None
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
+        (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
+        loggers = Loggers(save_dir)
     last, best = save_dir / "last.ckpt", save_dir / "best.ckpt"
 
     start_epoch, best_fitness, resume_payload, anchors = 0, 0.0, None, None
@@ -296,20 +308,21 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
     imgsz = check_img_size(imgsz, s=max(model.stride))
 
     train_ds, train_loader = create_loader(
-        data_dict["train"], img_size=imgsz, batch_size=batch_size, augment=True, hyp=hyp,
-        workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
+        data_dict["train"], img_size=imgsz, batch_size=rank_bs, augment=True,
+        hyp=hyp, workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
         cache=cache if cache in ("ram", "disk") else None, masks=True,
-        mask_ratio=mask_ratio, overlap=overlap)
+        mask_ratio=mask_ratio, overlap=overlap, shard=(rank(), n_ranks))
     if not noautoanchor and not _resume_ckpt and not weights:
         from yolov5_tpu_torch.utils.autoanchor import check_anchors
 
-        new_anchors = check_anchors(train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz)
+        new_anchors = broadcast_object(check_anchors(
+            train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz) if main else None)
         if new_anchors != model.anchors:
             model.anchors = new_anchors
             model.cfg["anchors"] = anchors_to_yaml(new_anchors)
             print("autoanchor: anchors updated")
     val_loader = None
-    if data_dict.get("val") and not noval:
+    if data_dict.get("val") and not noval and main:
         _, val_loader = create_loader(
             data_dict["val"], img_size=imgsz, batch_size=batch_size, workers=workers,
             max_labels=max_labels, single_cls=single_cls, masks=True, mask_ratio=mask_ratio,
@@ -334,6 +347,7 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
     if resume_payload is not None:
         restore_train_state(state, resume_payload)
         resume_payload = None
+    replicate(state)
 
     # the device path: the set and its polygons in device memory, mosaic,
     # HSV, flips and the GT masks in the step (separable geometry, no
@@ -369,8 +383,10 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
         return batch
 
     stopper = EarlyStopper(patience)
-    print(f"seg training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} "
-          f"steps/epoch, {device}, imgsz {imgsz}")
+    if main:
+        print(f"seg training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} "
+              f"steps/epoch, {device}" + (f" x {n_ranks} ranks" if n_ranks > 1 else "")
+              + f", imgsz {imgsz}")
     results = {}
     t_start = time.time()
     try:
@@ -378,7 +394,8 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
             train_loader.set_epoch(epoch)
             t0 = time.time()
             if cache_dev is not None:
-                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader)])
+                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader,
+                                                                      whole=n_ranks > 1)])
                 plan = (multiscale_epoch_plan(idx_epoch, ms_sizes, ms_rng) if multi_scale
                         else [(None, idx_epoch)])
                 feed = (({"idx": idx}, size) for size, rows in plan
@@ -390,43 +407,59 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
             for batch, size in feed:
                 _, metrics = step_fns[size](state, batch, cache_dev)
                 agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
-            agg = {k: v.item() for k, v in agg.items()}  # the epoch's one wait for the device
+            # the epoch's one wait for the device: the ranks' shares summed
+            keys = ("box", "obj", "cls", "seg", "total", "seg_overflow")
+            agg = dict(zip(keys, all_reduce_sum(torch.stack([agg[k] for k in keys])).tolist()))
             dt = time.time() - t0
-            row = {f"train/{k}": agg[k] / nb for k in ("box", "obj", "cls", "seg", "total")}
+            row = {f"train/{k}": agg[k] / nb for k in keys[:5]}
             row["train/imgs_per_sec"] = nb * batch_size / dt
-            if agg["seg_overflow"] > 0:
+            if agg["seg_overflow"] > 0 and main:
                 # no silent caps: candidates past seg_k trained no mask
                 print(f"WARNING: {agg['seg_overflow']:.0f} mask-loss candidates exceeded "
                       f"--seg-k {seg_k} this epoch and were dropped; raise --seg-k to "
                       "restore full mask supervision")
 
-            fi = 0.0
-            if val_loader is not None:
-                seg = ema_segmenter(state, amp == torch.bfloat16, device)
-                results = evaluate_segment(seg.forward, val_loader, device, nc, overlap=overlap)
-                row.update({"val/box_map50": results["box"]["map50"],
-                            "val/box_map": results["box"]["map"],
-                            "val/mask_map50": results["mask"]["map50"],
-                            "val/mask_map": results["mask"]["map"]})
-                fi = results["fitness"]
-            row["fitness"] = fi
-            loggers.log_metrics(row, epoch)
-            print(f"epoch {epoch + 1}/{epochs}  "
-                  + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+            fi, stop = 0.0, False
+            if main:  # the other ranks wait for its fitness below
+                if val_loader is not None:
+                    seg = ema_segmenter(state, amp == torch.bfloat16, device)
+                    results = evaluate_segment(seg.forward, val_loader, device, nc,
+                                               overlap=overlap)
+                    row.update({"val/box_map50": results["box"]["map50"],
+                                "val/box_map": results["box"]["map"],
+                                "val/mask_map50": results["mask"]["map50"],
+                                "val/mask_map": results["mask"]["map"]})
+                    fi = results["fitness"]
+                row["fitness"] = fi
+                loggers.log_metrics(row, epoch)
+                print(f"epoch {epoch + 1}/{epochs}  "
+                      + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
 
-            best_fitness = max(best_fitness, fi)
-            if not nosave:
-                save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
-                if val_loader is not None and best_fitness == fi:
-                    save_checkpoint(best, state, epoch, best_fitness)
-                if save_period > 0 and epoch % save_period == 0:
-                    save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
-                                    best_fitness)
-            if stopper(epoch, fi):
-                print(f"early stopping at epoch {epoch + 1} "
-                      f"(no fitness gain in {patience} epochs)")
+                best_fitness = max(best_fitness, fi)
+                if not nosave:
+                    save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
+                    if val_loader is not None and best_fitness == fi:
+                        save_checkpoint(best, state, epoch, best_fitness)
+                    if save_period > 0 and epoch % save_period == 0:
+                        save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
+                                        best_fitness)
+                stop = stopper(epoch, fi)
+                if stop:
+                    print(f"early stopping at epoch {epoch + 1} "
+                          f"(no fitness gain in {patience} epochs)")
+            best_fitness, stop, results = broadcast_object((best_fitness, stop, results))
+            if stop:
                 break
     finally:
         train_loader.close()
-    print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
+    if main:
+        print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
+        if not noplots:
+            from yolov5_tpu_torch.utils.plots import plot_labels, plot_results
+
+            plot_results(save_dir / "results.csv")
+            plot_labels(train_ds.labels, model.names, save_dir)
+        if best.exists():
+            loggers.log_model(best)
+        loggers.close()
     return best_fitness, results, save_dir

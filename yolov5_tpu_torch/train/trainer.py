@@ -7,6 +7,16 @@ with float32 master weights, the loss in float32, backward, the optimizer,
 and an EMA tick on real updates only. Metrics stay tensors on the device,
 so a step never waits for the host; ``run`` sums them per epoch.
 
+When several processes train (``parallel``), a step is one rank's share of
+the global batch: batch norm and the loss take their statistics and
+normalisers over the global batch, and the gradients are summed over the
+ranks in one all-reduce before the optimizer, so every rank takes the same
+update. Device augmentation draws for the global batch: each rank augments
+the whole global batch (gathered from the device cache by the global index
+batch, or from the ranks' raw batches) with the shared generator, and keeps
+its own rows, so a world-N run augments as one process at the global batch
+does, mosaic partners included.
+
 The JAX package's ``AutoLayoutStep`` (an input-layout work-around for the
 TPU) and ``make_epoch_step`` (a ``lax.scan`` over the epoch, to save TPU
 dispatches) have no counterpart: ``run`` loops over the index batches.
@@ -21,6 +31,8 @@ import torch.nn.functional as F
 
 from yolov5_tpu_torch.data.device_aug import (aug_generator, device_augment,
                                               device_augment_seg, mosaic_in_batch)
+from yolov5_tpu_torch.parallel.distributed import world
+from yolov5_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows, rank_rows
 from yolov5_tpu_torch.train.optim import EMAState, Optimizer, ema_init, ema_update
 
 GEOMETRY_KEYS = ("degrees", "translate", "scale", "shear", "perspective")
@@ -88,12 +100,20 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
     the loss (``ComputeSegmentLoss``) takes ``batch["masks"]``; with device
     augmentation the batch (or the cache) also holds ``segments`` and
     ``device_augment_seg`` composes it and fills the masks at
-    ``mask_shape`` (index maps with ``overlap``)."""
+    ``mask_shape`` (index maps with ``overlap``).
+
+    With several ranks, ``batch`` is the rank's local batch, or, with
+    ``cache``, the global index batch; the metrics are the rank's shares of
+    the global batch's (their sum over ranks is the global value), and
+    ``grad_norm`` is that of the summed gradients."""
     amp = dtype == torch.bfloat16
 
     def step(state: TrainState, batch, cache=None):
         model = state.model
         self_idx = None
+        whole = world() > 1 and (cache is not None or device_aug_hyp is not None)
+        if whole and cache is None:  # the ranks' raw batches make the global batch
+            batch = {k: gather_rows(v) for k, v in batch.items()}
         if cache is not None:
             self_idx = batch["idx"]
             batch = {k: cache[k][self_idx] for k in ("images", "hw", "targets", "valid",
@@ -115,6 +135,8 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
             batch = device_augment(batch, gen, hyp)
             if ms_size is not None and batch["images"].shape[1] != ms_size:
                 batch = dict(batch, images=resize_batch(batch["images"], ms_size))
+        if whole:
+            batch = {k: rank_rows(v) for k, v in batch.items()}
         images = batch["images"].permute(0, 3, 1, 2)  # NHWC storage = channels_last
         if images.dtype == torch.uint8:
             images = images.to(dtype) / 255.0
@@ -126,7 +148,7 @@ def make_train_step(loss_fn, device_aug_hyp=None, dtype=torch.bfloat16, seed=0, 
             total, comps = loss_fn(maps, batch["targets"], batch["valid"], batch["masks"])
         else:
             total, comps = loss_fn(maps, batch["targets"], batch["valid"])
-        grads = torch.autograd.grad(total, state.opt.params)
+        grads = all_reduce_grads(torch.autograd.grad(total, state.opt.params))
         tick = state.opt.step(grads)
         # EMA ticks only on real optimizer updates (accumulation)
         state.ema = ema_update(state.ema, dict(model.named_parameters()), batch_stats(model),

@@ -35,6 +35,17 @@ def increment_path(path, exist_ok=False, sep="", mkdir=False):
     return path
 
 
+def run_dir(save_dir, project, name, exist_ok=False):
+    """A run's directory: ``save_dir``, else ``increment_path(project/name)``
+    as rank 0 finds it, the same on every rank (nothing is created)."""
+    from yolov5_tpu_torch.parallel.distributed import broadcast_object, is_main
+
+    if save_dir:
+        return Path(save_dir)
+    return Path(broadcast_object(increment_path(Path(project) / name, exist_ok=exist_ok)
+                                 if is_main() else None))
+
+
 def init_seeds(seed=0):
     """Seed Python's, numpy's and torch's global generators."""
     random.seed(seed)
@@ -56,11 +67,13 @@ def check_img_size(imgsz, s=32, floor=0):
 def check_dataset(data):
     """Load + validate a dataset config (dict, yaml path, or the name of a
     preset in ``yolov5_tpu/data/configs``). Schema: {path?, train, val?,
-    test?, names|nc}. A missing split raises: nothing is downloaded."""
+    test?, names|nc}. A missing split raises: nothing is downloaded.
+    ``clearml://<dataset_id>`` is a ClearML dataset version, fetched by the
+    ClearML SDK (``utils.loggers.construct_clearml_dataset``)."""
     if isinstance(data, str) and data.startswith("clearml://"):
-        raise NotImplementedError(
-            f"{data}: ClearML datasets are not ported yet; they come with the "
-            "port of the loggers")
+        from yolov5_tpu_torch.utils.loggers import construct_clearml_dataset
+
+        data = construct_clearml_dataset(data)
     if isinstance(data, (str, Path)):
         p = Path(data)
         if not p.exists():
