@@ -9,6 +9,7 @@ points, and training over several ranks with the loggers and the HPO sweep.
     python3 chip_smoke.py --zoo-only   # phases 1, 2 and 19 alone
     python3 chip_smoke.py --bench-only # phases 1, 2 and 21 alone
     python3 chip_smoke.py --ranks-only # phases 1, 2 and 22 alone
+    python3 chip_smoke.py --native-tf-only  # phases 1, 2 and 23 alone
     python3 chip_smoke.py --planted-faults  # 22 (a) sound and with each
                                             # planted fault: its bounds' check
 
@@ -220,12 +221,34 @@ Phases, one line each:
      yolov5_tpu_torch.hpo``, a 2-trial local sweep of 1 epoch at 320 px:
      hpo.csv with 2 rows and hyp_hpo.yaml. K1 and K2 launches of (b), (c)
      and (e) count into the kernels line.
+ 23. native decoder and TF exports (run last): (a) one probe line: g++'s
+     version, whether g++ finds jpeglib.h, the libjpeg.so files, whether
+     tensorflow is installed (looked up, not imported: importing it loads
+     jax), the host's cores; phase 11's training runs only where (b) or (c)
+     will; (b) where the header is there,
+     ``native`` is built (a failed build fails the run), 256 JPEGs of phase
+     7's rectangles (quality 95) are loaded natively and through the cv
+     path (median |diff| <= 2, > 80% of pixels within 4, targets within
+     0.02), the loader's img/s at b32 640 both ways and the decoder's alone,
+     and ``evaluator.run(rect=False)`` on phase 11's best.ckpt (yolov5s 640
+     b32 bf16) through each loader: mAP50 > 0, mAP50-95 within 0.005, K1
+     and K2 launched in each; where it is missing, one line ``native:
+     unavailable (<g++'s first error line>)``; (c) where tensorflow
+     is installed, the best.ckpt exported at 640 b1 to saved_model, pb, tflite
+     and int8 tflite, each through ``Detector`` on the card against the
+     .onnx on the port's runtime (TF32 off; f32 within atol and rtol 1e-3,
+     int8 objectness correlation > 0.9), their detections through K1 with
+     K2 idle, val of the saved_model over phase 7's set within 1e-3 of the
+     .ckpt's, and each backend's ms per b1 call beside the runtime's; where
+     it is not installed, one line saying so. ``python -m
+     tests.torch_chip_rehearsal`` runs this phase on the CPU at 128 px. K1 and K2 launches of (b) and
+     (c) count into the kernels line.
 Then one JSON line with each kernel's launches (in all, and per main-path
 call), error, times, bound and yardstick (and under "zoo" phase 19's, under
 "export" phase 20's numbers and K1's launches by path, under "bench" phase
 21's readings at the bench's shapes; and at the top level under "bench" the
-bench's line and the benchmarks rows, under "ranks" phase 22's readings), and
-last
+bench's line and the benchmarks rows, under "ranks" phase 22's readings,
+under "native_tf" phase 23's), and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside this script, it exits non-zero
 before printing a result.
@@ -800,12 +823,13 @@ def nms_bound_ms(boxes, scores, thres, max_det):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_iou
 
 
-def write_split(root, split, n, seed, shapes=VAL_SHAPES, polygons=False):
-    """n BMPs of the (h, w) ``shapes`` in turn with 1-6 filled rectangles
-    each, on a noisy background, one per cell of a 3x2 grid so that no two
-    overlap, and their YOLO labels (with ``polygons``, every second image's
-    as the rectangles' corner polygons), under images/<split> and
-    labels/<split>. Returns the number of labels."""
+def write_split(root, split, n, seed, shapes=VAL_SHAPES, polygons=False, ext=".bmp"):
+    """n BMPs (JPEGs of quality 95 for ``ext`` ".jpg") of the (h, w)
+    ``shapes`` in turn with 1-6 filled rectangles each, on a noisy
+    background, one per cell of a 3x2 grid so that no two overlap, and their
+    YOLO labels (with ``polygons``, every second image's as the rectangles'
+    corner polygons), under images/<split> and labels/<split>. Returns the
+    number of labels."""
     from yolov5_tpu_torch.data.imageio import imwrite
 
     root = Path(root)
@@ -831,7 +855,8 @@ def write_split(root, split, n, seed, shapes=VAL_SHAPES, polygons=False):
             else:
                 rows.append(f"{c} {(x0 + x1) / 2 / w:.6f} {(y0 + y1) / 2 / h:.6f} "
                             f"{(x1 - x0) / w:.6f} {(y1 - y0) / h:.6f}")
-        imwrite(root / "images" / split / f"{i:04d}.bmp", im)
+        (imwrite if ext == ".bmp" else write_jpeg)(root / "images" / split / f"{i:04d}{ext}",
+                                                   im)
         (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
         n_labels += len(rows)
     return n_labels
@@ -3145,7 +3170,7 @@ def _rows_line(rows):
                              if "map50_95" in r else
                              f"{'ok' if r['ok'] else 'FAILED'} {r['ms']:.3f} ms, max diff "
                              f"{r['max_abs_diff']:.3g}, corr {r['corr']:.6f}")
-        for r in rows if not r.get("note", "").startswith("unavailable: needs a torch"))
+        for r in rows)
 
 
 def phase_bench(dev, root, data, weights, trained, smi, stem_ms=None):
@@ -3801,6 +3826,281 @@ def phase_ranks(dev, train_data, seg_data, cls_data, root, smi, phase12_ms=None)
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the native JPEG batch decoder and the TensorFlow exports
+# ---------------------------------------------------------------------------
+
+NATIVE_IMAGES = 256
+NATIVE_MAP_TOL = 0.005  # mAP50-95 of the native and the cv loader's val runs
+TF_CHECK_IMAGES = 4  # b1 calls of each TF backend held to the .onnx runtime
+TF_TIME_CALLS = 10
+
+
+def write_jpeg(path, bgr, quality=95):
+    """A BGR image as a JPEG of ``quality``: OpenCV where it imports, else
+    PIL."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path, quality=quality)
+        return
+    if not cv2.imwrite(str(path), bgr, [cv2.IMWRITE_JPEG_QUALITY, quality]):
+        raise OSError(f"cv2.imwrite failed: {path}")
+
+
+def native_tf_probe():
+    """(probe line, whether g++ finds jpeglib.h, whether tensorflow is
+    installed). TensorFlow is looked up, not imported: importing it loads
+    jax, which (c)'s exporters then do only where they run."""
+    import importlib.metadata
+    import importlib.util
+    import shutil
+
+    gxx = shutil.which("g++")
+    version = header = "absent"
+    has_header = False
+    if gxx:
+        version = subprocess.run([gxx, "--version"], capture_output=True,
+                                 text=True).stdout.splitlines()[0]
+        pre = subprocess.run([gxx, "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+                             capture_output=True, text=True)
+        has_header = pre.returncode == 0
+        header = "found by g++" if has_header else \
+            next((ln for ln in pre.stderr.splitlines() if "error" in ln), "not found")
+    libs = sorted({p.name for d in ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib",
+                                    "/usr/local/lib", "/lib/x86_64-linux-gnu")
+                   for p in Path(d).glob("libjpeg.so*")})
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    tf_line = (f"tensorflow {importlib.metadata.version('tensorflow')} installed" if has_tf
+               else "tensorflow not installed")
+    line = (f"native-tf (a): g++: {version}; jpeglib.h: {header}; libjpeg.so*: "
+            f"{', '.join(libs) or 'absent'}; {tf_line}; {os.cpu_count()} host cores")
+    return line, has_header, has_tf
+
+
+def _loader_img_s(loader):
+    t0 = time.perf_counter()
+    n = sum(int(b["real"]) for b in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_native(dev, root, trained, smi, has_header):
+    """Phase 23 (b): NATIVE_IMAGES JPEGs of phase 7's rectangles; the
+    native batches against the cv path's, the loader's img/s both ways and
+    the decoder's alone, and evaluator.run(rect=False) on ``trained`` both
+    ways. Returns (launches, numbers), or (None, reason) where the decoder
+    is unavailable because libjpeg's header is missing."""
+    from yolov5_tpu_torch import native
+    from yolov5_tpu_torch.data import dataset as dataset_mod
+    from yolov5_tpu_torch.eval.evaluator import run as val_run
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    if not ok:
+        reason = native.unavailable_reason()
+        if has_header:
+            raise AssertionError(f"native-tf (b): jpeglib.h is there but the decoder does not "
+                                 f"build: {reason}")
+        print(f"native: unavailable ({reason})")
+        return None, reason
+    jroot = Path(root) / "jpeg"
+    n_labels = write_split(jroot, "val", NATIVE_IMAGES, seed=3, shapes=VAL_SHAPES, ext=".jpg")
+    images_dir = jroot / "images" / "val"
+    names = ", ".join(f"shape{c}" for c in range(VAL_CLASSES))
+    jdata = jroot / "jpeg.yaml"
+    jdata.write_text(f"path: {jroot}\nval: images/val\nnc: {VAL_CLASSES}\nnames: [{names}]\n")
+
+    # the native batches against the cv path's (tests/test_native.py's bounds)
+    loaders = {flag: dataset_mod.create_loader(str(images_dir), img_size=IMGSZ,
+                                               batch_size=BATCH, native=flag)[1]
+               for flag in (None, False)}
+    if not loaders[None].native or loaders[False].native:
+        raise AssertionError("native-tf (b): the loaders took the wrong paths")
+    worst_median, worst_within, worst_target = 0.0, 1.0, 0.0
+    for a, b in zip(*(list(loaders[f]) for f in (None, False))):
+        diff = np.abs(a["images"].astype(int) - b["images"].astype(int))
+        worst_median = max(worst_median, float(np.median(diff)))
+        worst_within = min(worst_within, float((diff <= 4).mean()))
+        worst_target = max(worst_target, float(np.abs(a["targets"] - b["targets"]).max()))
+        if not (np.array_equal(a["valid"], b["valid"]) and np.array_equal(a["indices"],
+                                                                          b["indices"])):
+            raise AssertionError("native-tf (b): labels or indices differ between the paths")
+    img_s = {flag: _loader_img_s(loaders[flag]) for flag in (None, False)}
+    paths = [str(p) for p in sorted(images_dir.glob("*.jpg"))[:BATCH]]
+    native.decode_letterbox_batch(paths, IMGSZ, scaleup=False)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        native.decode_letterbox_batch(paths, IMGSZ, scaleup=False)
+    decode_img_s = 3 * len(paths) / (time.perf_counter() - t0)
+    print(f"native-tf (b): {native.library_path().name} built in {build_s:.1f} s; "
+          f"{NATIVE_IMAGES} JPEGs (quality 95, {n_labels} labels) of (h, w) {VAL_SHAPES}; "
+          f"native batches against the cv path's: median |diff| <= {worst_median:.1f}, >= "
+          f"{100 * worst_within:.2f}% of pixels within 4, targets within {worst_target:.3g}; "
+          f"loader b{BATCH} {IMGSZ}px alone: native {img_s[None]:.1f} img/s, cv "
+          f"{img_s[False]:.1f} img/s; decode_letterbox_batch alone {decode_img_s:.1f} img/s "
+          f"({os.cpu_count()} host cores) | {smi}")
+    if worst_median > 2.0 or worst_within <= 0.8 or worst_target > 0.02:
+        raise AssertionError("native-tf (b): the native batches differ from the cv path's")
+
+    # evaluator.run(rect=False) on phase 11's best.ckpt through each loader
+    launches, vals = {}, {}
+    real = dataset_mod.create_loader
+    for flag in (None, False):
+        took = []
+
+        def make(*a, flag=flag, took=took, **k):
+            ds, loader = real(*a, native=flag, **k)
+            took.append(loader.native)
+            return ds, loader
+
+        dataset_mod.create_loader = make
+        stem_conv.launches = greedy_nms.launches = 0
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = val_run(str(jdata), weights=str(trained), cfg="yolov5s", imgsz=IMGSZ,
+                            batch_size=BATCH, half=True, rect=False, verbose=False,
+                            device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            dataset_mod.create_loader = real
+        key = "native" if flag is None else "cv"
+        launches[key] = {"greedy_nms": greedy_nms.launches, "stem_conv": stem_conv.launches}
+        vals[key] = dict(map50=r["map50"], map=r["map"], img_s=r["images"] / wall,
+                         took_native=took)
+    d_map = abs(vals["native"]["map"] - vals["cv"]["map"])
+    print("native-tf (b): evaluator.run(rect=False) yolov5s " + f"{IMGSZ}px b{BATCH} bf16 on "
+          "phase 11's best.ckpt over the JPEGs: " + "; ".join(
+              f"{k} loader mAP50 {v['map50']:.5f} mAP50-95 {v['map']:.5f}, {v['img_s']:.1f} "
+              f"img/s, launches {launches[k]}" for k, v in vals.items())
+          + f"; mAP50-95 apart {d_map:.5f} | {smi}")
+    if not (vals["native"]["took_native"] == [True] and vals["cv"]["took_native"] == [False]
+            and min(v["map50"] for v in vals.values()) > 0 and d_map <= NATIVE_MAP_TOL
+            and min(min(n.values()) for n in launches.values()) >= 1):
+        raise AssertionError(f"native-tf (b): {vals}, launches {launches}")
+    total = {k: sum(n[k] for n in launches.values()) for k in ("greedy_nms", "stem_conv")}
+    return total, {"loader_img_s": {"native": img_s[None], "cv": img_s[False]},
+                   "decode_img_s": decode_img_s, "val": vals, "build_s": build_s,
+                   "launches_by_path": launches}
+
+
+def phase_tf(dev, root, data, trained, smi):
+    """Phase 23 (c): phase 11's best.ckpt exported at 640 b1 to saved_model,
+    pb, tflite and int8 tflite; each through Detector on the card against
+    the .onnx on the port's runtime (TF32 off); detections through K1 (K2
+    idle); val of the saved_model over phase 7's set against the .ckpt's.
+    Returns (K1 launches, numbers)."""
+    from yolov5_tpu_torch import export as export_mod
+    from yolov5_tpu_torch import infer
+    from yolov5_tpu_torch.eval.evaluator import run as val_run
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
+
+    torch_tf32_off()
+    out_dir = Path(root) / "tf_export"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        arts = export_mod.run(weights=str(trained), cfg="yolov5s", imgsz=IMGSZ,
+                              include=("onnx", "saved_model", "pb", "tflite"),
+                              output_dir=str(out_dir), device=dev)
+        arts["tflite-int8"] = export_mod.run(weights=str(trained), cfg="yolov5s", imgsz=IMGSZ,
+                                             include=("tflite",), int8=True, data=str(data),
+                                             output_dir=str(out_dir), device=dev)["tflite"]
+    export_s = time.perf_counter() - t0
+    missing = [k for k, v in arts.items() if not v]
+    if missing:
+        raise AssertionError(f"native-tf (c): export failed for {missing}")
+    _, _, batch = smoke_sources(root)
+    ref_det = infer.Detector(str(arts["onnx"]), device=dev)
+    images = [batch[i:i + 1] for i in range(TF_CHECK_IMAGES)]
+    with uncounted():
+        refs = [ref_det.forward(im).cpu().numpy() for im in images]
+        onnx_ms = cuda_ms(lambda: ref_det.forward(images[0]), iters=TF_TIME_CALLS)
+    rows, launches, numbers = [], {}, {"onnx_runtime_ms": onnx_ms, "export_s": export_s}
+    for fmt in ("saved_model", "pb", "tflite", "tflite-int8"):
+        det = infer.Detector(str(arts[fmt]), device=dev)
+        outs = [det.forward(im).cpu().numpy() for im in images]
+        t0 = time.perf_counter()
+        for _ in range(TF_TIME_CALLS):
+            det.forward(images[0])
+        ms = (time.perf_counter() - t0) * 1e3 / TF_TIME_CALLS
+        err = max(float(np.abs(o - r).max()) for o, r in zip(outs, refs))
+        if fmt == "tflite-int8":
+            corr = float(np.corrcoef(np.concatenate([o[..., 4].ravel() for o in outs]),
+                                     np.concatenate([r[..., 4].ravel() for r in refs]))[0, 1])
+            good = corr > 0.9 and float(max(o[..., :4].max() for o in outs)) > 2.0
+            what = f"objectness correlation {corr:.4f}"
+        else:
+            good = all(np.allclose(o, r, atol=1e-3, rtol=1e-3) for o, r in zip(outs, refs))
+            what = f"within atol/rtol 1e-3: {'yes' if good else 'NO'}"
+        stem_conv.launches = greedy_nms.launches = 0
+        n_det = sum(int(det(im).valid.sum()) for im in images)
+        launches[fmt] = {"greedy_nms": greedy_nms.launches, "stem_conv": stem_conv.launches}
+        rows.append(f"{fmt} {ms:.3f} ms a b1 call (host TF), max diff {err:.3g}, {what}, "
+                    f"{n_det} detections, launches {launches[fmt]}")
+        numbers[fmt] = {"ms": ms, "max_abs_diff": err}
+        if not good or launches[fmt]["greedy_nms"] < len(images) \
+                or launches[fmt]["stem_conv"]:
+            raise AssertionError(f"native-tf (c): {rows[-1]}")
+    print(f"native-tf (c): yolov5s {IMGSZ}px b1 exports of phase 11's best.ckpt in "
+          f"{export_s:.1f} s, against the .onnx on the port's runtime on the card "
+          f"({onnx_ms:.3f} ms a b1 call, TF32 off) over {len(images)} images: "
+          + "; ".join(rows) + f" | {smi}")
+
+    # val of the saved_model over phase 7's set against the .ckpt's (phase 20 (c)'s bound)
+    stem_conv.launches = greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = val_run(str(data), weights=str(arts["saved_model"]), imgsz=IMGSZ, batch_size=1,
+                      rect=False, verbose=False, device=dev)
+    val_s = time.perf_counter() - t0
+    launches["val"] = {"greedy_nms": greedy_nms.launches, "stem_conv": stem_conv.launches}
+    with uncounted(), contextlib.redirect_stdout(io.StringIO()):
+        ref = val_run(str(data), weights=str(trained), cfg="yolov5s", imgsz=IMGSZ,
+                      batch_size=BATCH, rect=False, verbose=False, device=dev)
+    diffs = {k: abs(got[k] - ref[k]) for k in ("mp", "mr", "map50", "map")}
+    print(f"native-tf (c): val --weights _saved_model b1 over {got['images']} images in "
+          f"{val_s:.1f} s: mAP50 {got['map50']:.5f} mAP50-95 {got['map']:.5f}; the .ckpt "
+          f"f32 at --no-rect mAP50 {ref['map50']:.5f} mAP50-95 {ref['map']:.5f}; largest "
+          f"difference {max(diffs.values()):.3g}; launches {launches['val']} | {smi}")
+    if not got["map50"] > 0 or max(diffs.values()) > 1e-3 or launches["val"]["stem_conv"] \
+            or launches["val"]["greedy_nms"] < 1:
+        raise AssertionError(f"native-tf (c): val of the saved_model: {diffs}")
+    torch_tf32_default()
+    numbers.update(val_map50=got["map50"], val_s=val_s, launches_by_path=launches)
+    return sum(n["greedy_nms"] for n in launches.values()), numbers
+
+
+def phase_native_tf(dev, root, data, get_trained, smi):
+    """Phase 23 (a)-(c). ``get_trained()`` gives phase 11's best.ckpt; it is
+    called only where (b) or (c) runs. Returns the launches of (b) and (c)
+    and the phase's numbers."""
+    t_phase = time.perf_counter()
+    line, has_header, has_tf = native_tf_probe()
+    print(line)
+    launches = {"greedy_nms": 0, "stem_conv": 0}
+    numbers = {"probe": line}
+    trained = get_trained() if has_tf or has_header else None
+    native_launches, numbers["native"] = phase_native(dev, root, trained, smi, has_header)
+    if native_launches is not None:
+        launches = dict(native_launches)
+    if not has_tf:
+        print("native-tf (c): tensorflow is not installed on this machine: the TF exports "
+              "are not run")
+        numbers["tf"] = None
+    else:
+        k1, numbers["tf"] = phase_tf(dev, root, data, trained, smi)
+        launches["greedy_nms"] += k1
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"native-tf: phase 23 in {numbers['wall_s']:.1f} s; K1/K2 launches {launches}")
+    return launches, numbers
+
+
 def torch_tf32_off():
     """F32 convolutions and products in full f32: the plain stem is an f32
     reference."""
@@ -3850,6 +4150,10 @@ def main(argv=None):
     parser.add_argument("--ranks-only", action="store_true",
                         help="phases 1, 2 and 22 alone (on the data of 7, 10, 17 and 18), then "
                              "its numbers as one JSON line and no result line")
+    parser.add_argument("--native-tf-only", action="store_true",
+                        help="phases 1, 2 and 23 alone (on the data of 7 and 10, and phase "
+                             "11's training run where 23 (b) or (c) runs), then its numbers "
+                             "as one JSON line and no result line")
     parser.add_argument("--planted-faults", action="store_true",
                         help="phases 1 and 2, then phase 22 (a)'s f32 ranks sound and with "
                              "each planted fault against one process (on phase 10's data), "
@@ -3888,6 +4192,13 @@ def main(argv=None):
             _, ranks_numbers = phase_ranks(dev, phase_train_data(root), phase_seg_data(root),
                                            phase_cls_data(root), root, smi)
         print(json.dumps({"ranks": ranks_numbers}))
+        return 0
+    if opt.native_tf_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_native_tf_") as root:
+            data = phase_val_data(root)
+            _, native_tf_numbers = phase_native_tf(
+                dev, root, data, lambda: bench_trained(dev, phase_train_data(root), root), smi)
+        print(json.dumps({"native_tf": native_tf_numbers}, default=str))
         return 0
     if opt.planted_faults:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as root:
@@ -3928,13 +4239,15 @@ def main(argv=None):
                                                     stem_ms=times["stem_conv"]["ms"])
         ranks_launches, ranks_numbers = phase_ranks(dev, train_data, seg_data, cls_data, root,
                                                     smi, phase12_ms)
+        native_tf_launches, native_tf_numbers = phase_native_tf(dev, root, data,
+                                                                lambda: trained, smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
                 + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
                 + export_launches[k] + bench_launches[k] + ranks_launches[k]
-                for k, n in launches.items()}
+                + native_tf_launches[k] for k, n in launches.items()}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
@@ -3949,7 +4262,8 @@ def main(argv=None):
          **times["stem_conv"], "zoo": zoo_times["stem_conv"],
          "bench": bench_numbers.pop("stem_conv")},
     ]
-    print(json.dumps({"kernels": kernels, "bench": bench_numbers, "ranks": ranks_numbers}))
+    print(json.dumps({"kernels": kernels, "bench": bench_numbers, "ranks": ranks_numbers,
+                      "native_tf": native_tf_numbers}, default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

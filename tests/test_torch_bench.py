@@ -96,10 +96,14 @@ def shapes_yaml(tmp_path_factory):
 
 
 def test_benchmarks_formats_and_val_rows(tmp_path, shapes_yaml, capsys):
-    """Every available format passes its gate; the TensorFlow formats are
-    reported unavailable with the port's reason, never as failures; with
-    --data and --hard-fail one val row per format Detector opens (native,
-    the fused ckpt, the onnx) and the floor assertion passes."""
+    """Every available format passes its gate, the TensorFlow rows (the JAX
+    package's saved_model, pb (frozen graph), tflite and tflite-int8) where
+    TensorFlow is installed, else reported unavailable with the reason,
+    never as failures; with --data and --hard-fail one val row per format
+    Detector opens (native, the fused ckpt, the onnx) and the floor
+    assertion passes."""
+    import importlib.util
+
     from yolov5_tpu_torch.export import export_formats
 
     rows = benchmarks.main(["--cfg", "yolov5n", "--imgsz", "64", "--device", "cpu",
@@ -114,7 +118,13 @@ def test_benchmarks_formats_and_val_rows(tmp_path, shapes_yaml, capsys):
     for name, _, ok, note in export_formats():
         if not ok:
             assert by[name]["note"] == f"unavailable: {note}" and not by[name]["ok"]
-    assert "needs a torch -> TensorFlow path" in by["saved_model"]["note"]
+    if importlib.util.find_spec("tensorflow") is not None:
+        for fmt in ("saved_model", "pb (frozen graph)", "tflite"):
+            assert by[fmt]["ok"] and by[fmt]["max_abs_diff"] < 1e-3 and by[fmt]["ms"] > 0, fmt
+        assert by["tflite-int8"]["ok"] and by["tflite-int8"]["obj_corr"] > 0.9
+        assert np.isfinite(by["tflite-int8"]["max_abs_diff"])
+    else:
+        assert by["saved_model"]["note"] == "unavailable: tensorflow not installed"
     assert sorted(f for f in by if f.startswith("val (")) == [
         "val (ckpt)", "val (native)", "val (onnx)"]
     maps = [by[f"val ({f})"]["map50_95"] for f in ("native", "ckpt", "onnx")]

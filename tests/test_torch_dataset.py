@@ -124,11 +124,13 @@ def test_rect_batch_shapes(bs, img_size):
 @pytest.mark.parametrize("cache", [None, "ram", "disk"])
 def test_loader_batches_equal_jax(dataset, rect, cache):
     """images, targets, valid, real, indices and paths of every batch,
-    the padded final batch included, exactly equal."""
+    the padded final batch included, exactly equal, both packages reading
+    through their cv paths and caches (native=False; the native JPEG batches:
+    tests/test_torch_native.py)."""
     jds_, jl = jds.create_loader(str(dataset), img_size=160, batch_size=4, rect=rect,
                                  stride=32, native=False, max_labels=8)
     ds, pl = pds.create_loader(str(dataset), img_size=160, batch_size=4, rect=rect,
-                               stride=32, max_labels=8, cache=cache)
+                               stride=32, max_labels=8, cache=cache, native=False)
     np.testing.assert_array_equal(ds.shapes, jds_.shapes)
     _same(ds.labels, jds_.labels)
     assert len(pl) == len(jl) == 3

@@ -366,33 +366,43 @@ def test_fused_ckpt_cross_package(exported, tmp_path):
 
 
 def test_export_formats_and_nms(tmp_path, capsys):
-    """The format table; --nms fails for onnx in the port (named ROADMAP) as
-    the JAX package's onnx --nms fails (no sort lowering), the pt2 graph
-    holds it (as the JAX stablehlo graph does), and the other formats go
-    on."""
+    """The format table (the TensorFlow formats where TensorFlow is
+    installed); --nms fails for onnx in the port (named ROADMAP) as the JAX
+    package's onnx --nms fails (no sort lowering), the pt2 and TF graphs
+    hold it (as the JAX stablehlo and TF graphs do), and the other formats
+    go on."""
+    import importlib.util
+
     from yolov5_tpu.export import run as jax_export
 
+    has_tf = importlib.util.find_spec("tensorflow") is not None
     table = {n: (suffix, ok) for n, suffix, ok, _ in export_t.export_formats()}
-    assert {n for n, (_, ok) in table.items() if ok} == {"ckpt", "pt2", "onnx"}
+    tf_formats = {"saved_model", "pb", "tflite"}
+    assert {n for n, (_, ok) in table.items() if ok} == (
+        {"ckpt", "pt2", "onnx"} | (tf_formats if has_tf else set()))
     assert table["pt2"][0] == ".pt2" and "stablehlo" not in table
     arts = export_t.run(cfg="yolov5n", imgsz=64, include=("ckpt", "pt2", "onnx", "tflite"),
                         with_nms=True, output_dir=str(tmp_path), device="cpu")
     out = capsys.readouterr().out
     assert arts["ckpt"] and arts["pt2"] and arts["onnx"] is None
-    assert out.count("ROADMAP") >= 2  # onnx, and the skipped tflite
+    assert "ROADMAP" in out  # the onnx --nms
+    if has_tf:  # the tflite file holds the NMS
+        assert arts["tflite"] == tmp_path / "yolov5n.tflite" and arts["tflite"].exists()
+    else:
+        assert "skipping tflite: tensorflow not installed" in out
     jax_arts = jax_export(cfg="yolov5n", imgsz=64, include=("onnx",), with_nms=True,
                           output_dir=str(tmp_path / "jax"))
     assert jax_arts["onnx"] is None
 
 
 def test_export_cli(tmp_path, capsys):
-    """The CLI writes the .onnx; --int8 (int8 TFLite) is reported as
-    unavailable, naming the missing TensorFlow path, and the f32 formats go
-    on."""
+    """The CLI writes the .onnx; --int8 without tflite in --include changes
+    nothing and prints no skip, and the f32 formats go on (int8 TFLite
+    itself: tests/test_torch_tf_export.py)."""
     arts = export_t.main(["--cfg", "yolov5n", "--imgsz", "64", "--include", "onnx", "--int8",
                           "--output-dir", str(tmp_path), "--device", "cpu"])
     assert arts["onnx"] == tmp_path / "yolov5n.onnx" and arts["onnx"].exists()
-    assert "skipping int8: needs a torch -> TensorFlow path" in capsys.readouterr().out
+    assert set(arts) == {"onnx"} and "skipping" not in capsys.readouterr().out
     if not torch.cuda.is_available():  # the check runs on the card by default
         with pytest.raises(RuntimeError, match="no CUDA device"):
             export_t.main(["--cfg", "yolov5n", "--imgsz", "64", "--include", "onnx",

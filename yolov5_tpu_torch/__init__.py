@@ -12,16 +12,20 @@ Subpackages
   mask ops and the outer-border follower
 - ``models`` — canonical yolov5 layers, the Segment head, YAML graph, weight
   conversion
+- ``native`` — the JPEG batch decoder (libjpeg, OpenMP; built by g++ at
+  first use) under the loader's square JPEG batches
 - ``data``   — letterbox, image files (BMP without OpenCV), inference
   sources, the dataset and loader, augmentation on the device, the
   device-resident training set
 - ``infer``  — ``Detector`` (uint8 batch in, padded ``Detections`` out;
   decoded and TTA forwards; the exported backends: ``.onnx``, OpenCV DNN,
-  KServe v2, the JAX package's TF exports), ``Ensemble``, annotation,
+  KServe v2, TF exports), ``Ensemble``, annotation,
   ``run`` (the detect loop); ``infer_segment`` — segmentation predict
 - ``export`` — ``python -m yolov5_tpu_torch.export``: the fused ``.ckpt``,
-  the ``torch.export`` program (``.pt2``) and ``.onnx``; ``onnx`` — the wire
-  codec, the torch.export -> ONNX converter and a runtime on torch tensors;
+  the ``torch.export`` program (``.pt2``), ``.onnx`` and the TensorFlow
+  formats (saved_model, pb, tflite, int8 tflite); ``onnx`` — the wire
+  codec, the torch.export -> ONNX converter, a runtime on torch tensors and
+  the ONNX -> TF lowering (``to_tf``);
   ``remote`` — the REST and KServe v2 clients
 - ``detect``, ``segment``, ``serve`` — the detect CLI, the segmentation CLI
   (``predict``), the HTTP service; ``hub``, ``results`` — model loading and

@@ -43,12 +43,17 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+def hashed_path(stem: str, flags, srcs) -> Path:
+    """``build/<stem>-<hash>.so``, the hash over the flags and the sources."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libyolov5_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    return hashed_path("libyolov5_kernels", NVCC_FLAGS, sources())
 
 
 def _nvcc() -> str:

@@ -7,14 +7,18 @@ unchanged; the reference benchmarks.py:51-210).
     python -m yolov5_tpu_torch.benchmarks --device cpu --cfg yolov5n --imgsz 64
 
 For each format that ``export.export_formats()`` marks available (ckpt, pt2,
-onnx) it exports ``--weights`` (seeded random ``--cfg`` weights when none
-are given) at batch 1, checks the file's decoded predictions against the
-native ``Detector.forward`` on one seeded uint8 image (``fp_gate``: largest
+onnx, and saved_model, pb and tflite where TensorFlow is installed) it
+exports ``--weights`` (seeded random ``--cfg`` weights when none are given)
+at batch 1, checks the file's decoded predictions against the native
+``Detector.forward`` on one seeded uint8 image (``fp_gate``: largest
 difference under 3 and correlation above 0.99), and times it on
-``--device`` (CUDA events on the card, ``utils/profile.chain_time``). The
+``--device`` (CUDA events on the card, ``utils/profile.chain_time``; the
+TensorFlow files run on the host, so their time includes the copies). The
 ``.onnx`` runs through the port's runtime and through OpenCV's DNN module
-where OpenCV has one; the other formats are listed as unavailable, with the
-port's reason. With ``--data`` every file that ``Detector`` opens is
+where OpenCV has one. An int8 TFLite file (calibrated on ``--data``'s train
+images where given) is held to the objectness correlation above 0.9, as
+the JAX package's benchmarks.py holds it: its quantized boxes are coarse by
+design. The other formats are listed as unavailable, with the reason. With ``--data`` every file that ``Detector`` opens is
 validated at b1 and the native model at b32; ``--hard-fail`` then asserts
 the mAP50-95 floor and every parity gate. Prints the rows as JSON.
 """
@@ -68,6 +72,25 @@ def _row(fmt, fn, images, ref):
     return {"format": fmt, "ok": ok, "ms": ms, "max_abs_diff": diff, "corr": corr}
 
 
+# the row names of the TensorFlow files (the JAX package's benchmarks.py)
+TF_ROWS = {"saved_model": "saved_model", "pb": "pb (frozen graph)", "tflite": "tflite"}
+MIN_INT8_OBJ_CORR = 0.9
+
+
+def _int8_row(fn, images, ref):
+    """``tflite-int8``: ok where the objectness correlates with ``ref``."""
+    from yolov5_tpu_torch.utils.profile import chain_time
+
+    with torch.inference_mode():
+        out = fn(images).float().cpu().numpy()
+    ok, diff, corr = fp_gate(out, ref)
+    obj_corr = (float(np.corrcoef(out[..., 4].ravel(), ref[..., 4].ravel())[0, 1])
+                if out.shape == ref.shape else -1.0)
+    ms = chain_time(fn, (images,), k=5) * 1e3
+    return {"format": "tflite-int8", "ok": obj_corr > MIN_INT8_OBJ_CORR, "ms": ms,
+            "max_abs_diff": diff, "corr": corr, "obj_corr": obj_corr}
+
+
 def _cv2_row(onnx_path, images_np, ref):
     """``onnx (cv2.dnn)``: OpenCV's DNN module on the host, or a row that
     says why it is unavailable."""
@@ -115,6 +138,16 @@ def run(weights="", cfg="yolov5n", imgsz=320, data=None, hard_fail=None,
         rows.append(_row("onnx (port runtime)", Detector(str(arts["onnx"]),
                                                          device=dev).forward, images, ref))
         rows.append(_cv2_row(arts["onnx"], images_np, ref))
+    for fmt, row_name in TF_ROWS.items():
+        if arts.get(fmt):
+            rows.append(_row(row_name, Detector(str(arts[fmt]), device=dev).forward, images,
+                             ref))
+    if arts.get("tflite"):
+        int8 = export_run(weights=weights, cfg=cfg, imgsz=imgsz, include=("tflite",),
+                          int8=True, data=data, output_dir=output_dir, device=dev)
+        if int8.get("tflite"):
+            rows.append(_int8_row(Detector(str(int8["tflite"]), device=dev).forward, images,
+                                  ref))
     rows += [{"format": n, "ok": False, "note": f"unavailable: {note}"}
              for n, _, ok, note in table if not ok]
 

@@ -22,11 +22,16 @@ wm) uint8.
 
 Images are read by ``data.imageio`` (24-bit BMP with numpy, anything else
 with OpenCV) and resized by ``data.cv``: no path needs OpenCV for BMP
-input. A training loader with ``shard=(rank, world)`` yields one rank's
+input. A square loader that does not augment and has no masks, over a set
+of JPEG files only, takes the JAX package's native path instead: each batch
+is decoded and letterboxed by ``native.decode_letterbox_batch`` (libjpeg,
+its own bilinear resize, no upscaling), byte for byte the JAX loader's
+batch; a file that fails to decode falls back to ``get_item``. A training
+loader with ``shard=(rank, world)`` yields one rank's
 share of each global batch: after the epoch's shuffle, rank r takes the
 indices at positions r, r + world, ... (the JAX package's shard), so the
 ranks' batch bi together are the one-process batch bi at ``world`` times
-the batch size. The JAX package's native JPEG batches are not ported.
+the batch size.
 """
 
 from __future__ import annotations
@@ -560,6 +565,11 @@ class Loader:
     epoch * 1009 + i)``, a quad batch's layout from ``(seed * 100003 + epoch
     * 1009 + bi * 7919) * 31 + 7``, wherever the batch is built.
 
+    ``native``: None takes the native JPEG batches where they apply (not
+    augment, no masks, not rect, every file .jpg/.jpeg) and the decoder is
+    available, as the JAX package does; False never; True where they apply
+    and the decoder cannot be built raises with the reason.
+
     ``shard=(rank, world)``: this rank's rows of the epoch's order, strided;
     ``batch_size`` is the rank's share of the global batch, and every rank
     takes as many batches as one process would at the global batch. A quad
@@ -569,7 +579,7 @@ class Loader:
 
     def __init__(self, dataset: YOLODataset, batch_size=16, max_labels=128, workers=8,
                  rect=False, stride=32, pad=0.5, seed=0, shuffle=None, quad=False,
-                 masks=False, mask_ratio=4, overlap=True, shard=(0, 1)):
+                 masks=False, mask_ratio=4, overlap=True, shard=(0, 1), native=None):
         self.ds = dataset
         self.bs = batch_size
         if max_labels in (None, "auto"):
@@ -609,6 +619,17 @@ class Loader:
             self.drop_last = False
         self.use_processes = dataset.augment and self.workers > 1
         self._mp_pool = None
+        # the JAX package's conditions (dataset.py:612-625); a rect loader
+        # keeps its rect batches (__iter__ takes them first)
+        self.native = False
+        if native is not False and not dataset.augment and not masks and all(
+                f.lower().endswith((".jpg", ".jpeg")) for f in dataset.im_files):
+            from yolov5_tpu_torch import native as native_lib
+
+            self.native = native_lib.available()
+            if native and not self.native:
+                raise RuntimeError("Loader(native=True): the native JPEG decoder is "
+                                   f"unavailable ({native_lib.unavailable_reason()})")
 
     def __getstate__(self):  # what the worker processes receive
         return {k: v for k, v in self.__dict__.items() if k != "_mp_pool"}
@@ -723,6 +744,8 @@ class Loader:
         padding), sample i drawing from ``default_rng(base_seed + i)``."""
         if self.raw_images:
             batch = raw_batch(self.ds, chunk, self.max_labels)
+        elif self.native:
+            batch = self._native_batch(chunk)
         else:
             fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
             samples = list(map_fn(fetch, chunk[:real]))
@@ -768,6 +791,43 @@ class Loader:
             if nxt is not None:
                 pending.append(pool.submit(_mp_build, nxt))
             yield batch
+
+    def _native_batch(self, chunk):
+        """A square batch decoded and letterboxed by the native decoder
+        (no upscaling), labels re-normalised to the letterbox frame, as the
+        JAX package's ``_native_batch`` (dataset.py:776-809); a file that
+        fails to decode falls back to ``get_item``."""
+        from yolov5_tpu_torch.native import decode_letterbox_batch
+
+        s = self.ds.img_size
+        images, hws, ok = decode_letterbox_batch([self.ds.im_files[i] for i in chunk], s,
+                                                 scaleup=False)
+        targets = np.zeros((len(chunk), self.max_labels, 5), np.float32)
+        valid = np.zeros((len(chunk), self.max_labels), bool)
+        for b, i in enumerate(chunk):
+            if not ok[b]:  # a corrupt or unusual JPEG
+                im, labels, _ = self.ds.get_item(i)
+                images[b] = im[..., ::-1]
+                n = min(len(labels), self.max_labels)
+                if n:
+                    targets[b, :n] = labels[:n]
+                    valid[b, :n] = True
+                continue
+            h0, w0 = int(hws[b, 0]), int(hws[b, 1])
+            lab = self.ds.labels[i]
+            n = min(len(lab), self.max_labels)
+            if n:
+                r = min(s / h0, s / w0, 1.0)
+                nw, nh = int(w0 * r + 0.5), int(h0 * r + 0.5)
+                px, py = (s - nw) / 2, (s - nh) / 2
+                t = lab[:n].copy()
+                t[:, 1] = (t[:, 1] * nw + px) / s
+                t[:, 2] = (t[:, 2] * nh + py) / s
+                t[:, 3] = t[:, 3] * nw / s
+                t[:, 4] = t[:, 4] * nh / s
+                targets[b, :n] = t
+                valid[b, :n] = True
+        return {"images": images, "targets": targets, "valid": valid}
 
     def _rect_batch(self, chunk, hw):
         """Load + letterbox a batch to the rect shape (h, w); labels
@@ -832,7 +892,7 @@ class Loader:
 def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=128,
                   workers=8, seed=0, single_cls=False, cache=None, device_aug=False,
                   rect=False, stride=32, pad=0.5, hyp=None, shuffle=None, quad=False,
-                  masks=False, mask_ratio=4, overlap=True, shard=(0, 1)):
+                  masks=False, mask_ratio=4, overlap=True, shard=(0, 1), native=None):
     """Dataset + loader in one call (reference create_dataloader,
     utils/dataloaders.py:106-164). Validation (augment False) sees every
     image once and pads the final batch; training (augment True) shuffles
@@ -844,7 +904,8 @@ def create_loader(path, img_size=640, batch_size=16, augment=False, max_labels=1
                      augment=augment, device_aug=device_aug, hyp=hyp)
     loader = Loader(ds, batch_size=batch_size, max_labels=max_labels, workers=workers,
                     rect=rect, stride=stride, pad=pad, seed=seed, shuffle=shuffle, quad=quad,
-                    masks=masks, mask_ratio=mask_ratio, overlap=overlap, shard=shard)
+                    masks=masks, mask_ratio=mask_ratio, overlap=overlap, shard=shard,
+                    native=native)
     if cache is None and augment:
         # the reference's check_cache_ram (dataloaders.py:614-631)
         copies = loader.workers if loader.use_processes else 1

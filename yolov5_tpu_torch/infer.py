@@ -124,11 +124,11 @@ class Detector:
     stem reaches kernel K2), or an
     exported model: a ``.onnx`` file (the port's ONNX runtime on ``device``,
     or OpenCV's DNN module with ``dnn``), ``triton+http(s)://host:port/model``
-    (a KServe v2 server), or the JAX package's ``_saved_model`` / ``.pb`` /
-    ``.tflite`` exports (TensorFlow). An exported model decodes in its graph:
-    ``forward`` gives its predictions on ``device``, ``__call__`` adds the NMS
-    (K1 on the card), ``model`` is None and names, classes and size come from
-    the file's metadata. Several weights make an ``Ensemble``: see
+    (a KServe v2 server), or a ``_saved_model`` / ``.pb`` / ``.tflite``
+    export of either package (TensorFlow on the host). An exported model
+    decodes in its graph: ``forward`` gives its predictions on ``device``,
+    ``__call__`` adds the NMS (K1 on the card), ``model`` is None and names,
+    classes and size come from the file's metadata. Several weights make an ``Ensemble``: see
     ``ensemble``. ``half`` runs the model in bfloat16. ``fuse`` means
     nothing to an exported model, whose graph is fixed. It runs on the card
     unless ``device`` says otherwise (``device="cpu"``), and raises where no
@@ -337,11 +337,13 @@ def _remote_backend(w):
 
 
 def _tf_backend(w, imgsz):
-    """(backend, forward, meta) of the JAX package's TensorFlow exports
+    """(backend, forward, meta) of a TensorFlow export of either package
     (SavedModel directory, frozen ``.pb``, ``.tflite``; reference
     models/common.py:545-561,676-712), run by TensorFlow on the host."""
+    from yolov5_tpu_torch.onnx.to_tf import import_tensorflow
+
     try:
-        import tensorflow as tf
+        tf = import_tensorflow()
     except ImportError as e:
         raise ImportError(f"Detector({w!r}): TensorFlow is not installed; it runs "
                           "_saved_model, .pb and .tflite exports") from e
