@@ -1,0 +1,7 @@
+"""Share of the traced stretch in which the card ran nothing."""
+
+from perfbench.core.readers import idle_pct
+
+
+def read(result):
+    return idle_pct(result)
