@@ -1014,7 +1014,8 @@ def phase_val_times(dev, data, a, smi):
     # run finds cuDNN's plans for them made
     warm = evaluator.run(str(data), batch_size=BATCH, **run_kw)["speed_ms"]
     for name, s in (("first run (a)", a["speed_ms"]), ("second run", warm)):
-        print(f"val times b{BATCH}, {name} (host clock, synchronised, first batch dropped): "
+        print(f"val times b{BATCH}, {name} (forward and NMS by device events, matching by "
+              f"host clock, first batch dropped): "
               f"forward {s['forward']:.4f} ms/img, NMS {s['nms']:.4f} ms/img, host "
               f"{s['host']:.4f} ms/img | {smi}")
     r = evaluator.run_speed(str(data), **run_kw)

@@ -96,9 +96,9 @@ def test_trace_op_table_and_profile_model(tmp_path):
 
 
 def test_timers():
-    with prof.Profile(sync=True) as dt:
+    with prof.recording() as spans, prof.span("sum"):
         sum(range(1000))
-    assert dt.t == dt.dt > 0
+    assert len(spans) == 1 and spans[0].host_ms == spans[0].device_ms > 0
     assert prof.chain_time(lambda x: x * 2, (torch.ones(8),), k=3, reps=2) > 0
 
 

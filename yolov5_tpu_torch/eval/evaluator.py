@@ -11,7 +11,6 @@ protocol, val.py:282-310); ``native_space=False`` matches in letterbox space.
 from __future__ import annotations
 
 import json
-import time
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +19,7 @@ import torch
 from yolov5_tpu_torch.eval.coco import COCO80_TO_COCO91, gt_from_dataset, score_detections_json
 from yolov5_tpu_torch.eval.metrics import ap_per_class, fitness, process_batch
 from yolov5_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression
+from yolov5_tpu_torch.utils.profile import recording, span
 
 
 def _scale_to_native(boxes, lb_hw, native_hw):
@@ -45,11 +45,6 @@ def _xywhn_to_xyxy(lab, w, h):
     return np.concatenate([lab[:, 0:1].astype(np.float32), xyxy], 1)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @torch.inference_mode()
 def evaluate(forward, loader, device, conf_thres=0.001, iou_thres=0.6,
              max_det=300, max_nms=30720, multi_label=True, verbose=False,
@@ -71,8 +66,10 @@ def evaluate(forward, loader, device, conf_thres=0.001, iou_thres=0.6,
     (the reference's autolabelling path, val.py lb=).
     speed_ms: ms per image of forward (from the batch on the device to the
     decoded predictions), NMS (with the copy of the detections to the host)
-    and host matching; the first batch, which builds the kernels, is left
-    out when there are more.
+    and host matching, read from the pass's spans (``val.forward`` and
+    ``val.nms`` on the device's clock, ``val.match`` on the host's); the
+    first batch, which builds the kernels, is left out when there are more.
+    The pass's one synchronization is that copy.
     """
     device = torch.device(device)
     json_rows = []
@@ -83,111 +80,115 @@ def evaluate(forward, loader, device, conf_thres=0.001, iou_thres=0.6,
     iouv = np.linspace(0.5, 0.95, 10)
 
     stats = []
-    bt_fwd, bt_nms, bt_host, bt_imgs = [], [], [], []
     n_images = 0
-    for batch in loader:
-        im_np = batch["images"]
-        bh, bw = int(im_np.shape[1]), int(im_np.shape[2])
-        images = torch.from_numpy(im_np).to(device)
-        _sync(device)
-        t0 = time.perf_counter()
-        preds = forward(images)
-        if save_hybrid:
-            tgt = torch.from_numpy(batch["targets"]).to(device)  # (bs, M, 5)
-            vmask = torch.from_numpy(batch["valid"]).to(device)
-            nc = preds.shape[-1] - 5
-            lab_xywh = tgt[..., 1:5] * torch.tensor([bw, bh, bw, bh], dtype=torch.float32,
-                                                    device=device)
-            # one-hot that leaves a class id outside [0, nc) all zero
-            onehot = (tgt[..., 0:1].long() == torch.arange(nc, device=device)).float()
-            conf1 = vmask[..., None].float()
-            lab_rows = torch.cat([lab_xywh, conf1, onehot * conf1], -1)
-            preds = torch.cat([preds, lab_rows], 1)
-        _sync(device)
-        t1 = time.perf_counter()
-        dets = non_max_suppression(preds, conf_thres=conf_thres, iou_thres=iou_thres,
-                                   multi_label=multi_label, max_det=max_det,
-                                   max_nms=max_nms)
-        dets = detections_to_numpy(dets)
-        t2 = time.perf_counter()
+    with recording() as spans:
+        it = iter(loader)
+        while True:
+            with span("val.load"):
+                batch = next(it, None)
+            if batch is None:
+                break
+            im_np = batch["images"]
+            bh, bw = int(im_np.shape[1]), int(im_np.shape[2])
+            images = torch.from_numpy(im_np).to(device)
+            bs = int(batch.get("real", images.shape[0]))  # skip pad duplicates
+            n_images += bs
+            with span("val.forward", device=device, images=bs):
+                preds = forward(images)
+                if save_hybrid:
+                    tgt = torch.from_numpy(batch["targets"]).to(device)  # (bs, M, 5)
+                    vmask = torch.from_numpy(batch["valid"]).to(device)
+                    nc = preds.shape[-1] - 5
+                    lab_xywh = tgt[..., 1:5] * torch.tensor([bw, bh, bw, bh],
+                                                            dtype=torch.float32, device=device)
+                    # one-hot that leaves a class id outside [0, nc) all zero
+                    onehot = (tgt[..., 0:1].long()
+                              == torch.arange(nc, device=device)).float()
+                    conf1 = vmask[..., None].float()
+                    lab_rows = torch.cat([lab_xywh, conf1, onehot * conf1], -1)
+                    preds = torch.cat([preds, lab_rows], 1)
+            with span("val.nms", device=device):
+                dets = non_max_suppression(preds, conf_thres=conf_thres, iou_thres=iou_thres,
+                                           multi_label=multi_label, max_det=max_det,
+                                           max_nms=max_nms)
+                dets = detections_to_numpy(dets)
+            with span("val.match"):
+                targets, valid = batch["targets"], batch["valid"]
+                for b in range(bs):
+                    pred = dets[b]  # (n, 6) xyxy+conf+cls in letterbox px
+                    idx = int(batch["indices"][b])
+                    nh, nw = (int(x) for x in shapes[idx])
+                    if native_space:
+                        # reference val.py:282-310: un-letterbox predictions, take
+                        # labels straight from the dataset in original coordinates
+                        pred = pred.copy()
+                        pred[:, :4] = _scale_to_native(pred[:, :4], (bh, bw), (nh, nw))
+                        labels = _xywhn_to_xyxy(loader.ds.labels[idx], nw, nh)
+                    else:
+                        labels = _xywhn_to_xyxy(targets[b][valid[b]], bw, bh)
+                    correct = process_batch(pred, labels, iouv)
+                    stats.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
+                    if save_txt_dir is None and not (save_json and len(pred)):
+                        continue
+                    nb_ = (pred[:, :4] if native_space
+                           else _scale_to_native(pred[:, :4], (bh, bw), (nh, nw)))
+                    stem = Path(batch["paths"][b]).stem
+                    if save_txt_dir is not None:
+                        lines = []
+                        for (x1, y1, x2, y2), row in zip(nb_, pred):
+                            rec = [int(row[5]), (x1 + x2) / 2 / nw, (y1 + y2) / 2 / nh,
+                                   (x2 - x1) / nw, (y2 - y1) / nh]
+                            if save_conf:
+                                rec.append(row[4])
+                            lines.append(" ".join(f"{v:.6g}" for v in rec))
+                        (save_txt_dir / f"{stem}.txt").write_text(
+                            "\n".join(lines) + ("\n" if lines else ""))
+                    if save_json and len(pred):
+                        image_id = int(stem) if stem.isnumeric() else stem
+                        for (x1, y1, x2, y2), row in zip(nb_, pred):
+                            cid = int(row[5])
+                            if coco91 and cid < len(COCO80_TO_COCO91):
+                                cid = COCO80_TO_COCO91[cid]
+                            json_rows.append({
+                                "image_id": image_id,
+                                "category_id": cid,
+                                "bbox": [round(float(x1), 3), round(float(y1), 3),
+                                         round(float(x2 - x1), 3), round(float(y2 - y1), 3)],
+                                "score": round(float(row[4]), 5),
+                            })
 
-        targets, valid = batch["targets"], batch["valid"]
-        bs = int(batch.get("real", images.shape[0]))  # skip pad duplicates
-        n_images += bs
-        for b in range(bs):
-            pred = dets[b]  # (n, 6) xyxy+conf+cls in letterbox px
-            idx = int(batch["indices"][b])
-            nh, nw = (int(x) for x in shapes[idx])
-            if native_space:
-                # reference val.py:282-310: un-letterbox predictions, take
-                # labels straight from the dataset in original coordinates
-                pred = pred.copy()
-                pred[:, :4] = _scale_to_native(pred[:, :4], (bh, bw), (nh, nw))
-                labels = _xywhn_to_xyxy(loader.ds.labels[idx], nw, nh)
-            else:
-                labels = _xywhn_to_xyxy(targets[b][valid[b]], bw, bh)
-            correct = process_batch(pred, labels, iouv)
-            stats.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
-            if save_txt_dir is None and not (save_json and len(pred)):
-                continue
-            nb_ = (pred[:, :4] if native_space
-                   else _scale_to_native(pred[:, :4], (bh, bw), (nh, nw)))
-            stem = Path(batch["paths"][b]).stem
-            if save_txt_dir is not None:
-                lines = []
-                for (x1, y1, x2, y2), row in zip(nb_, pred):
-                    rec = [int(row[5]), (x1 + x2) / 2 / nw, (y1 + y2) / 2 / nh,
-                           (x2 - x1) / nw, (y2 - y1) / nh]
-                    if save_conf:
-                        rec.append(row[4])
-                    lines.append(" ".join(f"{v:.6g}" for v in rec))
-                (save_txt_dir / f"{stem}.txt").write_text(
-                    "\n".join(lines) + ("\n" if lines else ""))
-            if save_json and len(pred):
-                image_id = int(stem) if stem.isnumeric() else stem
-                for (x1, y1, x2, y2), row in zip(nb_, pred):
-                    cid = int(row[5])
-                    if coco91 and cid < len(COCO80_TO_COCO91):
-                        cid = COCO80_TO_COCO91[cid]
-                    json_rows.append({
-                        "image_id": image_id,
-                        "category_id": cid,
-                        "bbox": [round(float(x1), 3), round(float(y1), 3),
-                                 round(float(x2 - x1), 3), round(float(y2 - y1), 3)],
-                        "score": round(float(row[4]), 5),
-                    })
-        t3 = time.perf_counter()
-        bt_fwd.append(t1 - t0)
-        bt_nms.append(t2 - t1)
-        bt_host.append(t3 - t2)
-        bt_imgs.append(bs)
+    with span("val.ap"):
+        tp = np.concatenate([s[0] for s in stats]) if stats else np.zeros((0, 10), bool)
+        conf = np.concatenate([s[1] for s in stats]) if stats else np.zeros(0)
+        pred_cls = np.concatenate([s[2] for s in stats]) if stats else np.zeros(0)
+        target_cls = np.concatenate([s[3] for s in stats]) if stats else np.zeros(0)
 
-    tp = np.concatenate([s[0] for s in stats]) if stats else np.zeros((0, 10), bool)
-    conf = np.concatenate([s[1] for s in stats]) if stats else np.zeros(0)
-    pred_cls = np.concatenate([s[2] for s in stats]) if stats else np.zeros(0)
-    target_cls = np.concatenate([s[3] for s in stats]) if stats else np.zeros(0)
+        if tp.shape[0] and target_cls.shape[0]:
+            res = ap_per_class(tp, conf, pred_cls, target_cls)
+            ap50 = res["ap"][:, 0]
+            ap = res["ap"].mean(1)
+            mp, mr = res["p"].mean(), res["r"].mean()
+            map50, mean_ap = ap50.mean(), ap.mean()
+            per_class = {int(c): (float(a50), float(a)) for c, a50, a in
+                         zip(res["classes"], ap50, ap)}
+        else:
+            mp = mr = map50 = mean_ap = 0.0
+            per_class = {}
 
-    if tp.shape[0] and target_cls.shape[0]:
-        res = ap_per_class(tp, conf, pred_cls, target_cls)
-        ap50 = res["ap"][:, 0]
-        ap = res["ap"].mean(1)
-        mp, mr = res["p"].mean(), res["r"].mean()
-        map50, mean_ap = ap50.mean(), ap.mean()
-        per_class = {int(c): (float(a50), float(a)) for c, a50, a in
-                     zip(res["classes"], ap50, ap)}
-    else:
-        mp = mr = map50 = mean_ap = 0.0
-        per_class = {}
+    forwards = [sp for sp in spans if sp.name == "val.forward"]
+    skip = 1 if len(forwards) > 1 else 0  # the first batch builds the kernels
+    n_timed = max(sum(sp.counts["images"] for sp in forwards[skip:]), 1)
 
-    skip = 1 if len(bt_imgs) > 1 else 0  # the first batch builds the kernels
-    n_timed = max(sum(bt_imgs[skip:]), 1)
-    ms = lambda ts: 1000 * sum(ts[skip:]) / n_timed
+    def ms(name, clock):
+        return sum([getattr(sp, clock) for sp in spans if sp.name == name][skip:]) / n_timed
+
     out = {
         "mp": float(mp), "mr": float(mr), "map50": float(map50),
         "map": float(mean_ap),
         "fitness": fitness([mp, mr, map50, mean_ap]),
         "per_class": per_class,
-        "speed_ms": {"forward": ms(bt_fwd), "nms": ms(bt_nms), "host": ms(bt_host)},
+        "speed_ms": {"forward": ms("val.forward", "device_ms"), "nms": ms("val.nms", "device_ms"),
+                     "host": ms("val.match", "host_ms")},
         "images": n_images,
     }
     if save_json:

@@ -37,6 +37,7 @@ from yolov5_tpu_torch.ops.nms import (detections_to_numpy, non_max_suppression,
 from yolov5_tpu_torch.utils import font
 from yolov5_tpu_torch.utils.checkpoint import load_checkpoint, variables_from_checkpoint
 from yolov5_tpu_torch.utils.general import increment_path
+from yolov5_tpu_torch.utils.profile import span
 
 # test-time augmentation: (scale, flip left-right) per pass (reference
 # models/yolo.py:269-312), and the value the scaled images are padded with
@@ -188,9 +189,14 @@ class Detector:
     def _to_input(self, images_uint8) -> torch.Tensor:
         """(bs, H, W, 3) uint8 -> (bs, 3, H, W) channels_last in the working
         dtype: cast, then divide by 255 in that dtype."""
-        images = self._images(images_uint8).to(self.device, non_blocking=True).contiguous()
-        x = images.permute(0, 3, 1, 2)  # NHWC storage = channels_last
-        return x.to(self.dtype) / 255.0
+        with span("detect.input", device=self.device):
+            images = self._images(images_uint8).to(self.device, non_blocking=True).contiguous()
+            x = images.permute(0, 3, 1, 2)  # NHWC storage = channels_last
+            return x.to(self.dtype) / 255.0
+
+    def _model(self, x):
+        with span("detect.model", device=self.device):
+            return self.model(x)
 
     def _decode(self, maps) -> torch.Tensor:
         return decode(maps, self.anchors, self.stride, torch.float32, nc=self.nc)
@@ -200,7 +206,7 @@ class Detector:
         """The raw head maps [(bs, ny, nx, na, no)] in the working dtype."""
         if self.model is None:
             raise ValueError(f"Detector: the {self.backend} backend gives no raw maps")
-        return self.model(self._to_input(images_uint8))
+        return self._model(self._to_input(images_uint8))
 
     @torch.inference_mode()
     def forward(self, images_uint8) -> torch.Tensor:
@@ -208,7 +214,7 @@ class Detector:
         objectness and class probabilities."""
         if self.model is None:
             return self._exported(self._images(images_uint8)).to(self.device)
-        return self._decode(self.model(self._to_input(images_uint8)))
+        return self._decode(self._model(self._to_input(images_uint8)))
 
     @torch.inference_mode()
     def forward_tta(self, images_uint8) -> torch.Tensor:
@@ -244,17 +250,18 @@ class Detector:
         Returns padded ``Detections`` on the model's device: from the raw
         maps, or with ``augment`` from the decoded TTA predictions, or from
         an exported model's decoded predictions."""
-        class_filter = _class_filter(classes, self.nc)
-        if augment or self.model is None:  # an exported model's TTA raises
-            return non_max_suppression(
-                self.forward_tta(images_uint8) if augment else self.forward(images_uint8),
-                conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
-                agnostic=agnostic, class_filter=class_filter, max_nms=max_nms)
-        maps = self.model(self._to_input(images_uint8))
-        return non_max_suppression_from_maps(
-            maps, self.anchors, self.stride, conf_thres=conf_thres,
-            iou_thres=iou_thres, max_det=max_det, agnostic=agnostic,
-            class_filter=class_filter, max_nms=max_nms, nc=self.nc)
+        with span("detect"):
+            class_filter = _class_filter(classes, self.nc)
+            if augment or self.model is None:  # an exported model's TTA raises
+                return non_max_suppression(
+                    self.forward_tta(images_uint8) if augment else self.forward(images_uint8),
+                    conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                    agnostic=agnostic, class_filter=class_filter, max_nms=max_nms)
+            maps = self._model(self._to_input(images_uint8))
+            return non_max_suppression_from_maps(
+                maps, self.anchors, self.stride, conf_thres=conf_thres,
+                iou_thres=iou_thres, max_det=max_det, agnostic=agnostic,
+                class_filter=class_filter, max_nms=max_nms, nc=self.nc)
 
     def warmup(self, batch_size=1):
         """One forward + NMS on a black batch (builds the CUDA kernels)."""

@@ -18,6 +18,7 @@ import torch
 
 from yolov5_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_traceable
+from yolov5_tpu_torch.utils.profile import span
 
 # Class-offset width: boxes of different classes are translated apart by
 # class_id * MAX_WH so one class-agnostic pass does per-class NMS.
@@ -117,39 +118,40 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45,
     ``yolov5_tpu.ops.nms.non_max_suppression``; ``traceable`` makes it a
     function that ``torch.export`` traces (no K1: a graph of torch ops)."""
     prediction = torch.as_tensor(prediction)
-    bs, n, no = prediction.shape
-    if nc is None:
-        nc = no - 5
-    nm = no - nc - 5
-    conf = _f32(conf_thres)
+    with span("nms", device=prediction.device):
+        bs, n, no = prediction.shape
+        if nc is None:
+            nc = no - 5
+        nm = no - nc - 5
+        conf = _f32(conf_thres)
 
-    obj = prediction[..., 4:5]
-    cls_scores = prediction[..., 5:5 + nc] * obj  # (bs, N, nc)
-    masks = prediction[..., 5 + nc:]
-    boxes = xywh2xyxy(prediction[..., :4])
-    class_filter = _class_filter(class_filter, prediction.device)
-    if class_filter is not None:
-        cls_scores = torch.where(class_filter, cls_scores, 0.0)
+        obj = prediction[..., 4:5]
+        cls_scores = prediction[..., 5:5 + nc] * obj  # (bs, N, nc)
+        masks = prediction[..., 5 + nc:]
+        boxes = xywh2xyxy(prediction[..., :4])
+        class_filter = _class_filter(class_filter, prediction.device)
+        if class_filter is not None:
+            cls_scores = torch.where(class_filter, cls_scores, 0.0)
 
-    k = min(max_nms, n * nc if multi_label else n)
-    if multi_label and nc > 1:
-        flat = cls_scores.reshape(bs, n * nc)
-        flat = torch.where(flat > conf, flat, 0.0)
-        top_scores, top_idx = _select_k(flat, k)
-        box_idx = top_idx // nc
-        cls_idx = (top_idx % nc).to(torch.int32)
-    else:
-        best = cls_scores.max(-1).values
-        best = torch.where(best > conf, best, 0.0)
-        top_scores, box_idx = _select_k(best, k)
-        cls_idx = torch.gather(cls_scores.argmax(-1).to(torch.int32), 1, box_idx)
-    top_boxes = _gather_rows(boxes, box_idx)
-    top_masks = _gather_rows(masks, box_idx) if nm else masks[:, :0]
+        k = min(max_nms, n * nc if multi_label else n)
+        if multi_label and nc > 1:
+            flat = cls_scores.reshape(bs, n * nc)
+            flat = torch.where(flat > conf, flat, 0.0)
+            top_scores, top_idx = _select_k(flat, k)
+            box_idx = top_idx // nc
+            cls_idx = (top_idx % nc).to(torch.int32)
+        else:
+            best = cls_scores.max(-1).values
+            best = torch.where(best > conf, best, 0.0)
+            top_scores, box_idx = _select_k(best, k)
+            cls_idx = torch.gather(cls_scores.argmax(-1).to(torch.int32), 1, box_idx)
+        top_boxes = _gather_rows(boxes, box_idx)
+        top_masks = _gather_rows(masks, box_idx) if nm else masks[:, :0]
 
-    return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
-                              iou_thres=iou_thres, agnostic=agnostic,
-                              max_det=max_det, merge=merge,
-                              out_dtype=prediction.dtype, traceable=traceable)
+        return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
+                                  iou_thres=iou_thres, agnostic=agnostic,
+                                  max_det=max_det, merge=merge,
+                                  out_dtype=prediction.dtype, traceable=traceable)
 
 
 def non_max_suppression_from_maps(maps, anchors, strides, conf_thres=0.25,
@@ -164,84 +166,86 @@ def non_max_suppression_from_maps(maps, anchors, strides, conf_thres=0.25,
     monotone), re-selected globally, and only the survivors are decoded.
     ``anchors`` are per-level (na, 2) sizes in pixels, ``strides`` per-level
     strides; everything else as ``non_max_suppression``."""
-    bs, _, _, _, no = maps[0].shape
-    if nc is None:
-        nc = no - 5
-    nm = no - nc - 5
-    device = maps[0].device
-    conf = _f32(conf_thres)
-    class_filter = _class_filter(class_filter, device)
+    with span("nms", device=maps[0].device):
+        bs, _, _, _, no = maps[0].shape
+        if nc is None:
+            nc = no - 5
+        nm = no - nc - 5
+        device = maps[0].device
+        conf = _f32(conf_thres)
+        class_filter = _class_filter(class_filter, device)
 
-    n_total = sum(m.shape[1] * m.shape[2] * m.shape[3] for m in maps)
-    k = min(max_nms, n_total * nc if multi_label else n_total)
+        n_total = sum(m.shape[1] * m.shape[2] * m.shape[3] for m in maps)
+        k = min(max_nms, n_total * nc if multi_label else n_total)
 
-    parts = []  # per-level (scores, boxes_xyxy, cls_idx, masks)
-    for y, a, s in zip(maps, anchors, strides):
-        _, ny, nx, na, _ = y.shape
-        n_l = ny * nx * na
-        flat_y = y.reshape(bs, n_l, no)  # cell-major (gy, gx, anchor)
-        obj_sig = torch.sigmoid(flat_y[..., 4].float())
+        parts = []  # per-level (scores, boxes_xyxy, cls_idx, masks)
+        for y, a, s in zip(maps, anchors, strides):
+            _, ny, nx, na, _ = y.shape
+            n_l = ny * nx * na
+            flat_y = y.reshape(bs, n_l, no)  # cell-major (gy, gx, anchor)
+            obj_sig = torch.sigmoid(flat_y[..., 4].float())
 
-        if multi_label and nc > 1:
-            probs = obj_sig[..., None] * torch.sigmoid(flat_y[..., 5:5 + nc].float())
-            if class_filter is not None:
-                probs = torch.where(class_filter, probs, 0.0)
-            flat = probs.reshape(bs, n_l * nc)
-            flat = torch.where(flat > conf, flat, 0.0)
-            scores_l, top_idx = _select_k(flat, min(k, n_l * nc))
-            cand_idx = top_idx // nc
-            cls_idx = (top_idx % nc).to(torch.int32)
-        else:
-            # max and argmax in the maps' dtype: exact, and no f32 copy of
-            # the (bs, N, nc) class logits
-            cls_logits = flat_y[..., 5:5 + nc]
-            if class_filter is not None:
-                cls_logits = torch.where(class_filter, cls_logits, -torch.inf)
-            best_logit, best_cls = cls_logits.max(-1)
-            best = obj_sig * torch.sigmoid(best_logit.float())
-            best = torch.where(best > conf, best, 0.0)
-            scores_l, cand_idx = _select_k(best, min(k, n_l))
-            cls_idx = torch.gather(best_cls.to(torch.int32), 1, cand_idx)
+            if multi_label and nc > 1:
+                probs = obj_sig[..., None] * torch.sigmoid(flat_y[..., 5:5 + nc].float())
+                if class_filter is not None:
+                    probs = torch.where(class_filter, probs, 0.0)
+                flat = probs.reshape(bs, n_l * nc)
+                flat = torch.where(flat > conf, flat, 0.0)
+                scores_l, top_idx = _select_k(flat, min(k, n_l * nc))
+                cand_idx = top_idx // nc
+                cls_idx = (top_idx % nc).to(torch.int32)
+            else:
+                # max and argmax in the maps' dtype: exact, and no f32 copy of
+                # the (bs, N, nc) class logits
+                cls_logits = flat_y[..., 5:5 + nc]
+                if class_filter is not None:
+                    cls_logits = torch.where(class_filter, cls_logits, -torch.inf)
+                best_logit, best_cls = cls_logits.max(-1)
+                best = obj_sig * torch.sigmoid(best_logit.float())
+                best = torch.where(best > conf, best, 0.0)
+                scores_l, cand_idx = _select_k(best, min(k, n_l))
+                cls_idx = torch.gather(best_cls.to(torch.int32), 1, cand_idx)
 
-        # gather the surviving raw rows, then decode only those
-        rows = _gather_rows(flat_y, cand_idx).float()  # (bs, k_l, no)
-        anc = cand_idx % na
-        cell = cand_idx // na
-        grid = torch.stack([(cell % nx).float(), (cell // nx).float()], -1)
-        a_px = torch.as_tensor(a, dtype=torch.float32, device=device)[anc]
-        xy = (torch.sigmoid(rows[..., 0:2]) * 2.0 - 0.5 + grid) * s
-        wh = (torch.sigmoid(rows[..., 2:4]) * 2.0) ** 2 * a_px
-        boxes_l = xywh2xyxy(torch.cat([xy, wh], -1))
-        masks_l = rows[..., 5 + nc:] if nm else rows[..., :0]
-        parts.append((scores_l, boxes_l, cls_idx, masks_l))
+            # gather the surviving raw rows, then decode only those
+            rows = _gather_rows(flat_y, cand_idx).float()  # (bs, k_l, no)
+            anc = cand_idx % na
+            cell = cand_idx // na
+            grid = torch.stack([(cell % nx).float(), (cell // nx).float()], -1)
+            a_px = torch.as_tensor(a, dtype=torch.float32, device=device)[anc]
+            xy = (torch.sigmoid(rows[..., 0:2]) * 2.0 - 0.5 + grid) * s
+            wh = (torch.sigmoid(rows[..., 2:4]) * 2.0) ** 2 * a_px
+            boxes_l = xywh2xyxy(torch.cat([xy, wh], -1))
+            masks_l = rows[..., 5 + nc:] if nm else rows[..., :0]
+            parts.append((scores_l, boxes_l, cls_idx, masks_l))
 
-    top_scores, top_boxes, cls_idx, top_masks = (
-        torch.cat([p[i] for p in parts], 1) for i in range(4))
-    if len(parts) > 1:
-        # one global sort: the suppression walks candidates in score order.
-        # Past the cap it is exact, as every global top-k candidate is inside
-        # its level's top-k_l. (yolov5_tpu sorts only past the cap, so under
-        # it its walk goes level by level.)
-        top_scores, order = _select_k(top_scores, min(k, top_scores.shape[1]))
-        top_boxes = _gather_rows(top_boxes, order)
-        cls_idx = torch.gather(cls_idx, 1, order)
-        top_masks = _gather_rows(top_masks, order) if nm else top_masks[:, :k]
+        top_scores, top_boxes, cls_idx, top_masks = (
+            torch.cat([p[i] for p in parts], 1) for i in range(4))
+        if len(parts) > 1:
+            # one global sort: the suppression walks candidates in score order.
+            # Past the cap it is exact, as every global top-k candidate is inside
+            # its level's top-k_l. (yolov5_tpu sorts only past the cap, so under
+            # it its walk goes level by level.)
+            top_scores, order = _select_k(top_scores, min(k, top_scores.shape[1]))
+            top_boxes = _gather_rows(top_boxes, order)
+            cls_idx = torch.gather(cls_idx, 1, order)
+            top_masks = _gather_rows(top_masks, order) if nm else top_masks[:, :k]
 
-    return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
-                              iou_thres=iou_thres, agnostic=agnostic,
-                              max_det=max_det, merge=merge,
-                              out_dtype=torch.float32)
+        return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
+                                  iou_thres=iou_thres, agnostic=agnostic,
+                                  max_det=max_det, merge=merge,
+                                  out_dtype=torch.float32)
 
 
 def detections_to_numpy(dets: Detections):
     """Padded `Detections` -> per-image list of (n_i, 6 + nm) float arrays
     [x1, y1, x2, y2, conf, cls, *coeffs]."""
-    boxes, scores, classes, masks = (t.detach().float().cpu().numpy() for t in dets[:4])
-    valid = dets.valid.cpu().numpy()
-    out = []
-    for b in range(boxes.shape[0]):
-        v = valid[b]
-        out.append(np.concatenate(
-            [boxes[b][v], scores[b][v][:, None], classes[b][v][:, None], masks[b][v]],
-            axis=1))
-    return out
+    with span("nms.fetch"):
+        boxes, scores, classes, masks = (t.detach().float().cpu().numpy() for t in dets[:4])
+        valid = dets.valid.cpu().numpy()
+        out = []
+        for b in range(boxes.shape[0]):
+            v = valid[b]
+            out.append(np.concatenate(
+                [boxes[b][v], scores[b][v][:, None], classes[b][v][:, None], masks[b][v]],
+                axis=1))
+        return out

@@ -1,10 +1,24 @@
 """Profiling and model summary, the port of ``yolov5_tpu/utils/profile.py``.
 
-``Profile`` (an accumulating timer), ``chain_time`` (steady-state seconds
-per call: CUDA events on the card), ``model_flops`` / ``model_info``
-(parameters, layers, GFLOPs), ``trace`` / ``trace_op_table`` /
-``profile_model`` (``torch.profiler``: time by kernel on the card, by op on
-the host).
+Spans: ``span(name, **counts)`` times a named phase of the program's work
+(``Detector.__call__`` and its input, model and NMS; ``evaluate``'s load,
+forward, NMS, matching and AP). It records only while a recorder is active,
+and otherwise returns one shared null context after reading two flags.
+Recorders are a running ``torch.profiler`` session, whose spans go to the
+bounded module ``store`` (the benchmark's readers fetch them with
+``store.spans()``), and a ``with recording() as spans:`` block, which
+collects its own. A recorded ``Span`` holds its name, its parent (the
+innermost open span), its counts, its host start and end
+(``time.perf_counter_ns``) and, on a CUDA device, two timing events on the
+current stream, resolved into ``device_ms`` only when read; no span
+synchronizes. While the profiler runs, each span is also a host range in it
+(a CPU op, which adds no device event), so traces show spans beside the
+card's kernels.
+
+``chain_time`` (steady-state seconds per call: CUDA events on the card),
+``model_flops`` / ``model_info`` (parameters, layers, GFLOPs), ``trace`` /
+``trace_op_table`` / ``profile_model`` (``torch.profiler``: time by kernel
+on the card, by op on the host).
 """
 
 from __future__ import annotations
@@ -13,31 +27,123 @@ import collections
 import contextlib
 import copy
 import json
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# a CPU-op range (RecordScope FUNCTION): unlike record_function's user scope,
+# kineto derives no device-side annotation event from it
+_RANGE = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()
+_recorders: tuple = ()  # the active recording() lists, replaced whole on each change
+_recorders_lock = threading.Lock()
+_local = threading.local()  # per thread: the open spans
 
 
-class Profile(contextlib.ContextDecorator):
-    """Accumulating timer: ``with Profile() as dt: ...; dt.t`` seconds. With
-    ``sync`` it waits on exit for the work queued on the card."""
+class SpanStore:
+    """The spans recorded while a ``torch.profiler`` session ran: the last
+    ``limit`` of them."""
 
-    def __init__(self, t=0.0, sync=False):
-        self.t = t
-        self.sync = sync
+    def __init__(self, limit=100_000):
+        self._spans = collections.deque(maxlen=limit)
+        self._lock = threading.Lock()
+
+    def append(self, span):
+        with self._lock:
+            self._spans.append(span)
+
+    def spans(self) -> list:
+        with self._lock:
+            return list(self._spans)
+
+    def clear(self):
+        with self._lock:
+            self._spans.clear()
+
+
+store = SpanStore()
+
+
+class Span:
+    """One recorded phase; ``host_ms`` from the host clock, ``device_ms``
+    from its events on the card (the host clock where it has none)."""
+
+    __slots__ = ("name", "parent", "counts", "start_ns", "end_ns", "_device", "_sinks",
+                 "_events", "_range")
+
+    def __init__(self, name, device, counts, sinks):
+        self.name, self.counts, self._device, self._sinks = name, counts, device, sinks
+        self.parent = self.start_ns = self.end_ns = self._events = self._range = None
 
     def __enter__(self):
-        self.start = time.perf_counter()
+        open_spans = _local.__dict__.setdefault("open", [])
+        if open_spans:
+            self.parent = open_spans[-1].name
+        for sink in self._sinks:
+            sink.append(self)
+        open_spans.append(self)
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _RANGE(self.name)
+            self._range.__enter__()
+        if self._device is not None and self._device.type == "cuda":
+            stream = torch.cuda.current_stream(self._device)
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record(stream)
+        self.start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        if self.sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.dt = time.perf_counter() - self.start
-        self.t += self.dt
+        self.end_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[1].record(torch.cuda.current_stream(self._device))
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _local.open.pop()
         return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    @property
+    def device_ms(self) -> float:
+        if self._events is None:
+            return self.host_ms
+        start, end = self._events
+        end.synchronize()  # done already where the caller synchronized after the span
+        return start.elapsed_time(end)
+
+
+def span(name, *, device=None, **counts):
+    """A context that records the phase ``name`` with ``counts`` (e.g.
+    ``images=32``) while a recorder is active, else the shared null context.
+    ``device``: the ``torch.device`` its work runs on (a CUDA device gives
+    it timing events)."""
+    profiling = _autograd_profiler._is_profiler_enabled
+    if not (profiling or _recorders):
+        return _NULL
+    sinks = (*_recorders, store) if profiling else _recorders
+    return Span(name, device, counts, sinks)
+
+
+@contextlib.contextmanager
+def recording():
+    """``with recording() as spans:`` collects, in order of entry, every
+    span opened in the block (by any thread)."""
+    global _recorders
+    spans = []
+    with _recorders_lock:
+        _recorders = (*_recorders, spans)
+    try:
+        yield spans
+    finally:
+        with _recorders_lock:
+            _recorders = tuple(r for r in _recorders if r is not spans)
 
 
 def _on_card(tree):
