@@ -3,6 +3,8 @@ discovery, labels, verification, the label cache, rect shapes and every
 batch of the rect and square loaders, on a JPEG set and a BMP set; and the
 host utilities of utils/general."""
 
+import struct
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,9 @@ import yolov5_tpu.utils.general as jgen
 import yolov5_tpu_torch.data.dataset as pds
 import yolov5_tpu_torch.utils.general as pgen
 from tests.torch_port_helpers import write_shapes_dataset
+from yolov5_tpu_torch.data.imageio import bmp_bytes, imwrite
+from yolov5_tpu_torch.data.letterbox import letterbox
+from yolov5_tpu_torch.utils import profile
 
 # 11 images: batches of 4 leave a padded final batch of 3
 SHAPES = [(120, 160), (160, 120), (160, 160), (90, 160), (200, 150), (64, 160),
@@ -143,6 +148,92 @@ def test_loader_batches_equal_jax(dataset, rect, cache):
         assert len(list(dataset.glob("*.npy"))) == len(SHAPES)
         for p in dataset.glob("*.npy"):
             p.unlink()
+
+
+def _rect_reference(ds, chunk, hw, max_labels):
+    """The rect batch as letterbox's canvas and a BGR -> RGB copy build it."""
+    h, w = hw
+    images = np.zeros((len(chunk), h, w, 3), np.uint8)
+    targets = np.zeros((len(chunk), max_labels, 5), np.float32)
+    valid = np.zeros((len(chunk), max_labels), bool)
+    for b, i in enumerate(chunk):
+        im, _, (rh, rw) = ds.load_image(int(i))
+        im, ratio, (dw, dh) = letterbox(im, (h, w), auto=False, scaleup=False)
+        images[b] = im[..., ::-1]
+        lab = ds.labels[int(i)]
+        n = min(len(lab), max_labels)
+        if n:
+            t = lab[:n].copy()
+            sw, sh = ratio[0] * rw, ratio[1] * rh
+            t[:, 1] = (t[:, 1] * sw + dw) / w
+            t[:, 2] = (t[:, 2] * sh + dh) / h
+            t[:, 3] = t[:, 3] * sw / w
+            t[:, 4] = t[:, 4] * sh / h
+            targets[b, :n] = t
+            valid[b, :n] = True
+    return {"images": images, "targets": targets, "valid": valid}
+
+
+def _write_bmp_top_down(path, bgr):
+    data = bytearray(bmp_bytes(bgr[::-1]))  # rows stored first to last
+    struct.pack_into("<i", data, 22, -bgr.shape[0])  # a negative height: top-down
+    path.write_bytes(bytes(data))
+
+
+# at 160 px: long sides above (area shrink) and below (linear grow) img_size,
+# and heights whose padding is odd (top and bottom differ); 9 images in
+# batches of 4 leave a final batch of 1 and 3 copies
+RECT_SHAPES = [(240, 180), (50, 70), (91, 160), (160, 120), (120, 160), (100, 130),
+               (160, 160), (73, 160), (160, 99)]
+
+
+@pytest.mark.parametrize("kind, cache", [("bmp", None), ("bmp-top-down", None), ("jpg", None),
+                                         ("bmp", "ram"), ("bmp", "disk")])
+def test_rect_batch_equals_letterbox(tmp_path, kind, cache):
+    """``Loader._rect_batch`` (one write an image into a pre-padded batch)
+    against ``load_image`` -> ``letterbox(auto=False, scaleup=False)`` ->
+    ``[..., ::-1]``: images, targets and valid byte for byte, over every
+    batch of a rect pass (the padded final batch included, cached reads on
+    a second pass) and at a slot smaller than every image (the resize)."""
+    if kind == "jpg":
+        pytest.importorskip("cv2")
+        write, ext = None, ".jpg"
+    else:
+        write, ext = (imwrite if kind == "bmp" else _write_bmp_top_down), ".bmp"
+    write_shapes_dataset(tmp_path, RECT_SHAPES, ext=ext, write=write)
+    if kind == "bmp-top-down":
+        path = next((tmp_path / "images" / "val").glob("*.bmp"))
+        assert struct.unpack_from("<i", path.read_bytes(), 22)[0] < 0
+    ds, loader = pds.create_loader(str(tmp_path / "images" / "val"), img_size=160,
+                                   batch_size=4, rect=True, stride=32, max_labels=8,
+                                   cache=cache)
+    grown = shrunk = odd = 0
+    for _ in range(2 if cache else 1):
+        batches = list(loader)
+        assert len(batches) == 3 and batches[-1]["real"] == 1
+        for batch in batches:
+            chunk, real = batch["indices"], batch["real"]
+            want = _rect_reference(ds, chunk, batch["images"].shape[1:3], 8)
+            want["valid"][real:] = False  # padded copies carry no labels
+            want["targets"][real:] = 0
+            for k in ("images", "targets", "valid"):
+                assert batch[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(batch[k], want[k])
+            h, w = batch["images"].shape[1:3]
+            for i in chunk[:real]:
+                h0, w0 = ds.shapes[i]
+                _, _, (rh, rw) = ds.load_image(int(i))
+                grown += max(h0, w0) < 160
+                shrunk += max(h0, w0) > 160
+                odd += (h - rh) % 2 or (w - rw) % 2
+    assert grown and shrunk and odd  # the cases the shapes are there for
+    chunk = [0, 2, 5, 5]
+    with profile.recording() as spans:
+        got = loader._rect_batch(chunk, (64, 96))
+    want = _rect_reference(ds, chunk, (64, 96), 8)
+    for k in ("images", "targets", "valid"):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert [(s.name, s.counts) for s in spans] == [("load.rect", {"images": 4, "resized": 4})]
 
 
 def test_loader_single_cls_and_unported_options(dataset):

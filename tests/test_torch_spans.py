@@ -104,6 +104,22 @@ def test_evaluate_spans_and_speed(det, val_set):
     assert all(v > 0 for v in res["speed_ms"].values())
 
 
+def test_rect_load_span_nests_under_val_load(det, val_set):
+    """One ``load.rect`` a batch inside its ``val.load``, counting every slot
+    of the pass (the final batch's padded copy too) and no resize: the
+    images are no larger than their batch shape."""
+    _, loader = create_loader(str(val_set), img_size=64, batch_size=2, rect=True, stride=32)
+    with prof.recording() as spans:
+        evaluator.evaluate(det.forward, loader, "cpu")
+    loads = [s for s in spans if s.name == "val.load"]
+    rects = [s for s in spans if s.name == "load.rect"]
+    assert len(rects) == len(loader) == 3 and {s.parent for s in rects} == {"val.load"}
+    for outer, inner in zip(loads, rects):
+        assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+    assert sum(s.counts["images"] for s in rects) == len(loader) * loader.bs == 6
+    assert all(s.counts["resized"] == 0 for s in rects)
+
+
 class _Unsized:
     """A loader with no ``__len__`` that records whether it was run to its end."""
 

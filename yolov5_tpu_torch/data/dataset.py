@@ -831,27 +831,49 @@ class Loader:
 
     def _rect_batch(self, chunk, hw):
         """Load + letterbox a batch to the rect shape (h, w); labels
-        re-normalized to that frame."""
+        re-normalized to that frame. Byte for byte ``letterbox(im, (h, w),
+        auto=False, scaleup=False)`` and a BGR -> RGB flip of each image, but
+        each image is written once, a channel plane at a time, into a batch
+        filled with the pad value: letterbox's canvas, its per-channel colour
+        fill and a strided ``[..., ::-1]`` copy cost several times as much.
+        Span ``load.rect`` counts the ``images`` written and those
+        ``resized`` (``letterbox``'s linear resize, where the image is larger
+        than the batch shape)."""
+        # imported here: worker processes import this module, and never torch
+        from yolov5_tpu_torch.utils.profile import span
+
         h, w = hw
         bs = len(chunk)
-        images = np.zeros((bs, h, w, 3), np.uint8)
         targets = np.zeros((bs, self.max_labels, 5), np.float32)
         valid = np.zeros((bs, self.max_labels), bool)
-        for b, i in enumerate(chunk):
-            im, _, (rh, rw) = self.ds.load_image(int(i))
-            im, ratio, (dw, dh) = letterbox(im, (h, w), auto=False, scaleup=False)
-            images[b] = im[..., ::-1]
-            lab = self.ds.labels[int(i)]
-            n = min(len(lab), self.max_labels)
-            if n:
-                t = lab[:n].copy()
-                sw, sh = ratio[0] * rw, ratio[1] * rh  # drawn image size in px
-                t[:, 1] = (t[:, 1] * sw + dw) / w
-                t[:, 2] = (t[:, 2] * sh + dh) / h
-                t[:, 3] = t[:, 3] * sw / w
-                t[:, 4] = t[:, 4] * sh / h
-                targets[b, :n] = t
-                valid[b, :n] = True
+        with span("load.rect", images=bs, resized=0) as rec:
+            images = np.empty((bs, h, w, 3), np.uint8)
+            images.fill(114)  # letterbox's (114, 114, 114), a scalar fill
+            for b, i in enumerate(chunk):
+                im, _, (rh, rw) = self.ds.load_image(int(i))
+                # letterbox's geometry (data/letterbox.py), without its canvas
+                r = min(h / rh, w / rw, 1.0)
+                nw, nh = int(round(rw * r)), int(round(rh * r))
+                dw, dh = (w - nw) / 2, (h - nh) / 2
+                if (rw, rh) != (nw, nh):
+                    im = resize(im, (nw, nh), "linear")
+                    if rec is not None:
+                        rec.counts["resized"] += 1
+                top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+                dst = images[b, top:top + nh, left:left + nw]
+                for c in range(3):  # BGR -> RGB
+                    dst[..., c] = im[..., 2 - c]
+                lab = self.ds.labels[int(i)]
+                n = min(len(lab), self.max_labels)
+                if n:
+                    t = lab[:n].copy()
+                    sw, sh = r * rw, r * rh  # drawn image size in px
+                    t[:, 1] = (t[:, 1] * sw + dw) / w
+                    t[:, 2] = (t[:, 2] * sh + dh) / h
+                    t[:, 3] = t[:, 3] * sw / w
+                    t[:, 4] = t[:, 4] * sh / h
+                    targets[b, :n] = t
+                    valid[b, :n] = True
         return {"images": images, "targets": targets, "valid": valid}
 
     def _rect_iter(self):
