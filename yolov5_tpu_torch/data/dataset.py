@@ -36,6 +36,7 @@ the batch size.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -747,15 +748,25 @@ class Loader:
         elif self.native:
             batch = self._native_batch(chunk)
         else:
-            fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
-            samples = list(map_fn(fetch, chunk[:real]))
-            samples += [samples[-1]] * (len(chunk) - real)
-            if self.quad:  # the global batch's draws, this rank's groups
-                draws = np.random.default_rng((base_seed + bi * 7919) * 31 + 7).random(
-                    len(chunk) * self.world // 4)
-                batch = self._quad_collate(samples, draws[self.rank::self.world])
+            if self.use_processes:  # a worker process: no torch, no recorder
+                timed = contextlib.nullcontext()
             else:
-                batch = self._collate(samples)
+                from yolov5_tpu_torch.utils.profile import span
+
+                timed = span("load.square", images=len(chunk), polygons=0)
+            with timed as rec:
+                fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
+                samples = list(map_fn(fetch, chunk[:real]))
+                samples += [samples[-1]] * (len(chunk) - real)
+                if self.quad:  # the global batch's draws, this rank's groups
+                    draws = np.random.default_rng((base_seed + bi * 7919) * 31 + 7).random(
+                        len(chunk) * self.world // 4)
+                    batch = self._quad_collate(samples, draws[self.rank::self.world])
+                else:
+                    batch = self._collate(samples)
+                if rec is not None and self.masks:
+                    rec.counts["polygons"] = sum(min(len(seg), self.max_labels)
+                                                 for _, _, seg in samples)
         batch["real"] = real
         batch["indices"] = np.asarray(chunk, np.int64)
         return batch

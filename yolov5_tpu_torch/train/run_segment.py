@@ -60,6 +60,7 @@ from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
 from yolov5_tpu_torch.utils.general import check_dataset, check_img_size, init_seeds, run_dir
 from yolov5_tpu_torch.utils.hyp import load_hyp
 from yolov5_tpu_torch.utils.loggers import Loggers
+from yolov5_tpu_torch.utils.profile import span
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -163,45 +164,65 @@ def evaluate_segment(forward, loader, device, nc, conf_thres=0.001, iou_thres=0.
     matched in letterbox pixels; masks at image resolution. save_json: a
     path for COCO rows with RLE masks (``_segm_json_rows``). Returns
     {"box": {p, r, map50, map}, "mask": {...}, "images", "fitness",
-    "speed_ms" (ms per image of the whole loop, host clock)}."""
+    "speed_ms" (ms per image of the whole loop, host clock)}.
+
+    Spans (``utils/profile.span``, recorded only under a recorder): per
+    batch ``segval.load`` (the loader's ``next()``, host), ``segval.forward``
+    (count ``images``), ``segval.nms`` (NMS and the copy of the detections
+    to the host) and ``segval.masks`` (``_mask_ious``; counts ``masks``, the
+    predicted masks assembled, and ``gt``, the GT instances they meet) on
+    the device's clock, ``segval.match`` (box and mask matching, json rows,
+    host); ``segval.ap`` once a pass (both summaries, host)."""
     device = torch.device(device)
     s = loader.ds.img_size
     json_rows = [] if save_json is not None else None
     stats_box, stats_mask = [], []
     n_images = 0
     t0 = time.perf_counter()
-    for batch in loader:
+    it = iter(loader)
+    while True:
+        with span("segval.load"):
+            batch = next(it, None)
+        if batch is None:
+            break
         images = torch.from_numpy(batch["images"]).to(device)
-        preds, proto = forward(images)
-        dets = non_max_suppression(preds, conf_thres=conf_thres, iou_thres=iou_thres,
-                                   multi_label=True, max_det=max_det, nc=nc)
-        rows = detections_to_numpy(dets)
         bs = int(batch.get("real", images.shape[0]))  # skip pad duplicates
         n_images += bs
+        with span("segval.forward", device=device, images=bs):
+            preds, proto = forward(images)
+        with span("segval.nms", device=device):
+            dets = non_max_suppression(preds, conf_thres=conf_thres, iou_thres=iou_thres,
+                                       multi_label=True, max_det=max_det, nc=nc)
+            rows = detections_to_numpy(dets)
         valid = batch["valid"]
         n_pred = [len(rows[b]) for b in range(bs)]
         n_gt = [int(valid[b].sum()) for b in range(bs)]
-        ious = _mask_ious(proto, dets, torch.from_numpy(batch["masks"]).to(device), n_pred,
-                          n_gt, s, overlap)
-        for b in range(bs):
-            pred = rows[b]
-            labels = _xywhn_to_xyxy(batch["targets"][b][valid[b]], s, s)
-            correct = process_batch(pred[:, :6], labels, IOUV)
-            stats_box.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
-            if n_pred[b] and n_gt[b]:
-                correct = process_batch(pred[:, :6], labels, IOUV,
-                                        iou=ious[b, :n_gt[b], :n_pred[b]])
-            else:
-                correct = np.zeros((n_pred[b], len(IOUV)), bool)
-            stats_mask.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
-            if json_rows is not None and n_pred[b]:
-                idx = int(batch["indices"][b])
-                json_rows.extend(_segm_json_rows(
-                    pred, proto[b].float().cpu().numpy(), loader.ds.im_files[idx],
-                    tuple(int(x) for x in loader.ds.shapes[idx]), (s, s), coco91))
+        both = [(n, g) for n, g in zip(n_pred, n_gt) if n and g]
+        with span("segval.masks", device=device, masks=sum(n for n, _ in both),
+                  gt=sum(g for _, g in both)):
+            ious = _mask_ious(proto, dets, torch.from_numpy(batch["masks"]).to(device), n_pred,
+                              n_gt, s, overlap)
+        with span("segval.match"):
+            for b in range(bs):
+                pred = rows[b]
+                labels = _xywhn_to_xyxy(batch["targets"][b][valid[b]], s, s)
+                correct = process_batch(pred[:, :6], labels, IOUV)
+                stats_box.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
+                if n_pred[b] and n_gt[b]:
+                    correct = process_batch(pred[:, :6], labels, IOUV,
+                                            iou=ious[b, :n_gt[b], :n_pred[b]])
+                else:
+                    correct = np.zeros((n_pred[b], len(IOUV)), bool)
+                stats_mask.append((correct, pred[:, 4], pred[:, 5], labels[:, 0]))
+                if json_rows is not None and n_pred[b]:
+                    idx = int(batch["indices"][b])
+                    json_rows.extend(_segm_json_rows(
+                        pred, proto[b].float().cpu().numpy(), loader.ds.im_files[idx],
+                        tuple(int(x) for x in loader.ds.shapes[idx]), (s, s), coco91))
     dt = time.perf_counter() - t0
 
-    box, mask = _summarize(stats_box), _summarize(stats_mask)
+    with span("segval.ap"):
+        box, mask = _summarize(stats_box), _summarize(stats_mask)
     out = {"box": box, "mask": mask, "images": n_images,
            "fitness": 0.9 * (box["map"] + mask["map"]) / 2
            + 0.1 * (box["map50"] + mask["map50"]) / 2,
