@@ -10,7 +10,8 @@ worst case here: OpenCV 5 maps coordinates in float32 in another order);
 input, in OpenCV's vector loop and in its scalar tail; ``fill_poly`` the
 same pixels as ``cv2.drawContours(..., FILLED)``; float32 ``resize``
 (linear) within 2.4e-7 of OpenCV's on values in [0, 1], its threshold at 0.5
-equal; ``contour_area`` equal to ``cv2.contourArea``."""
+equal; ``polygon_pixels`` each polygon's pixels as ``cv2.drawContours`` paints them;
+``contour_area`` and ``contour_areas`` equal to ``cv2.contourArea``."""
 
 import math
 
@@ -179,6 +180,24 @@ def test_fill_poly_equals_cv2_draw_contours(kind):
         np.testing.assert_array_equal(got, ref, err_msg=f"{h}x{w} {pts.tolist()}")
 
 
+@pytest.mark.parametrize("kind", ["convex", "star", "random", "edges"])
+def test_polygon_pixels_equal_cv2_draw_contours(kind):
+    """The pixels of several polygons inside one image, found together, each
+    polygon's the pixels ``cv2.drawContours(..., FILLED)`` paints."""
+    h, w = 80, 80
+    polys = [p for _, _, p in _polygons(kind, 300, seed=len(kind) + 1)
+             if (p >= 0).all() and (p[:, 0] < w).all() and (p[:, 1] < h).all()]
+    for group in (polys[i:i + 7] for i in range(0, len(polys), 7)):
+        owner, ys, xs = cv.polygon_pixels(np.concatenate(group), [len(p) for p in group], h, w)
+        assert (np.diff(owner) >= 0).all()
+        for j, pts in enumerate(group):
+            ref = np.zeros((h, w), np.uint8)
+            cv2.drawContours(ref, [pts], -1, 1, cv2.FILLED)
+            got = np.zeros((h, w), np.uint8)
+            got[ys[owner == j], xs[owner == j]] = 1
+            np.testing.assert_array_equal(got, ref, err_msg=f"{pts.tolist()}")
+
+
 @pytest.mark.parametrize("src,dst", RESIZE_PAIRS + [((16, 16), (64, 64)), ((160, 160), (640, 640)),
                                                     ((640, 640), (480, 640))])
 @pytest.mark.parametrize("kind", ["noise", "binary", "cropped"])
@@ -217,3 +236,16 @@ def test_contour_area_equals_cv2(dtype):
         pts = rng.uniform(-50, 700, (n, 2))
         pts = (np.round(pts) if rng.random() < 0.3 else pts).astype(dtype)
         assert cv.contour_area(pts) == cv2.contourArea(pts)
+
+
+def test_contour_areas_equal_cv2():
+    """Many contours at once, of 0-39 vertices: each value equal to
+    ``cv2.contourArea``'s."""
+    rng = np.random.default_rng(14)
+    for _ in range(50):
+        counts = rng.integers(0, 40, int(rng.integers(1, 12)))
+        pts = rng.uniform(-50, 700, (int(counts.sum()), 2)).astype(np.float32)
+        got = cv.contour_areas(pts, counts)
+        starts = np.cumsum(counts) - counts
+        assert got.tolist() == [cv2.contourArea(pts[a:a + n]) if n else 0.0
+                                for a, n in zip(starts, counts)]

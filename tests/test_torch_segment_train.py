@@ -122,17 +122,24 @@ def test_densify_and_resample_match_jax():
 # the loader's masks and the device cache
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("overlap", [True, False])
-def test_rasterize_masks_matches_jax(overlap):
-    """The host rasterizer (cv.fill_poly and contour_area) against the JAX
-    one (cv2.fillPoly and cv2.contourArea), overlapping polygons included."""
+@pytest.mark.parametrize("overlap,img_px,vertices", [
+    (True, 128, None), (False, 128, None), (True, 640, 32), (False, 640, 32)],
+    ids=["True", "False", "True-640-32", "False-640-32"])
+def test_rasterize_masks_matches_jax(overlap, img_px, vertices):
+    """The host rasterizer (cv.polygon_pixels, cv.fill_poly and
+    contour_areas) against the JAX one (cv2.fillPoly and cv2.contourArea),
+    overlapping polygons and polygons past the frame included: 3-39
+    vertices at 128 px to 32², and 1-15 polygons of 32 vertices at 640 px to
+    160², the segmentation validation cell's scale."""
     rng = np.random.default_rng(5)
+    hm = img_px // 4
     for _ in range(10):
-        n = int(rng.integers(1, 8))
-        segs = [p for p in _polygons(rng, n, int(rng.integers(3, 40)), 128, False)]
+        n = int(rng.integers(1, 16 if vertices else 8))
+        v = vertices or int(rng.integers(3, 40))
+        segs = [p for p in _polygons(rng, n, v, img_px, False)]
         labels = np.zeros((n, 5), np.float32)
-        got = dataset.rasterize_masks(segs, labels, 32, 32, 128, overlap=overlap)
-        ref = jax_dataset.rasterize_masks(segs, labels, 32, 32, 128, overlap=overlap)
+        got = dataset.rasterize_masks(segs, labels, hm, hm, img_px, overlap=overlap)
+        ref = jax_dataset.rasterize_masks(segs, labels, hm, hm, img_px, overlap=overlap)
         assert got.dtype == ref.dtype
         np.testing.assert_array_equal(got, ref)
 

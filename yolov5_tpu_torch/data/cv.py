@@ -18,8 +18,10 @@ Each function names its cv2 counterpart and how close it comes to OpenCV
 - ``bgr_to_hsv``, ``hsv_to_bgr``: ``cv2.cvtColor`` with ``COLOR_BGR2HSV`` /
   ``COLOR_HSV2BGR`` on uint8 (bit-exact over every input);
 - ``fill_poly``: ``cv2.drawContours(..., FILLED)`` / ``cv2.fillPoly`` of one
-  int32 polygon, 8-connected (the same pixels);
-- ``contour_area``: ``cv2.contourArea`` (equal).
+  int32 polygon, 8-connected (the same pixels); ``polygon_pixels``: the
+  same pixels for many polygons inside the image at once;
+- ``contour_area``: ``cv2.contourArea`` (equal); ``contour_areas``: the same
+  for many contours at once.
 There is one implementation of each: none of them calls OpenCV when it
 happens to be installed.
 """
@@ -311,17 +313,9 @@ _XY_SHIFT = 16  # OpenCV's polygon edges are 16.16 fixed point
 
 
 def contour_area(pts) -> float:
-    """``cv2.contourArea(pts)`` of one (n, 2) contour: the shoelace sum in
-    float64 over the vertices as float32, from the last vertex to the first,
-    halved and made positive (the same float64 operations in the same
-    order, so equal areas tie as OpenCV's do)."""
-    p = np.asarray(pts, _F32).reshape(-1, 2).astype(np.float64)
-    a = 0.0
-    px, py = p[-1] if len(p) else (0.0, 0.0)
-    for x, y in p:
-        a += px * y - py * x
-        px, py = x, y
-    return abs(a * 0.5)
+    """``cv2.contourArea(pts)`` of one (n, 2) contour (``contour_areas``)."""
+    pts = np.asarray(pts).reshape(-1, 2)
+    return float(contour_areas(pts, [len(pts)])[0])
 
 
 def _clip_line(w, h, p1, p2):
@@ -432,3 +426,85 @@ def fill_poly(im, pts, color):
             mask |= np.cumsum(spans[:, :w], 1) > 0
     im[mask] = color
     return im
+
+
+def _ramps(counts):
+    """For runs of ``counts`` laid end to end: each element's run and its
+    place in that run (0, 1, ...)."""
+    run = np.repeat(np.arange(len(counts)), counts)
+    return run, np.arange(len(run)) - (np.cumsum(counts) - counts)[run]
+
+
+def _previous(counts):
+    """Index of each vertex's predecessor in polygons of ``counts`` vertices
+    laid end to end: the one before, the last for a polygon's first."""
+    prev = np.arange(int(np.sum(counts))) - 1
+    full = counts > 0
+    prev[(np.cumsum(counts) - counts)[full]] += counts[full]
+    return prev
+
+
+def contour_areas(pts, counts) -> np.ndarray:
+    """``cv2.contourArea`` of each of several contours laid end to end in pts
+    (sum(counts), 2), contour i holding counts[i] vertices: the shoelace sum
+    in float64 over the vertices as float32, from the last vertex to the
+    first, halved and made positive. The same float64 operations in the same
+    order (a running sum along a row of terms padded with zeros), so equal
+    areas tie as OpenCV's do."""
+    p = np.asarray(pts, _F32).reshape(-1, 2).astype(np.float64)
+    counts = np.asarray(counts, np.int64)
+    prev = _previous(counts)
+    terms = p[prev, 0] * p[:, 1] - p[prev, 1] * p[:, 0]
+    rows = np.zeros((len(counts), max(int(counts.max(initial=0)), 1)))
+    rows[_ramps(counts)] = terms
+    return np.abs(np.cumsum(rows, 1)[:, -1] * 0.5)
+
+
+def polygon_pixels(pts, counts, h, w):
+    """The pixels ``fill_poly`` paints for each of several int polygons laid
+    end to end in pts (sum(counts), 2), polygon i holding counts[i] vertices,
+    every vertex inside the (h, w) image (so no side is clipped), all at
+    once: the 8-connected outline of every side (``_line_pixels``) and the
+    even-odd spans from ceil(left) to floor(right) of every polygon's 16.16
+    crossings, each side starting at its upper vertex and stepping by the C
+    quotient of its run over its rise. Returns (polygon, y, x) of each
+    pixel, ordered by polygon (a pixel may appear more than once)."""
+    pts = np.asarray(pts, np.int64).reshape(-1, 2)
+    counts = np.asarray(counts, np.int64)
+    owner = np.repeat(np.arange(len(counts)), counts)  # of each side, ending at its vertex
+    prev = _previous(counts)
+    xa, ya, xb, yb = pts[prev, 0], pts[prev, 1], pts[:, 0], pts[:, 1]
+
+    # outlines: Bresenham from each side's left end, error dx - 2 dy
+    swap = xb < xa
+    x1, y1 = np.where(swap, xb, xa), np.where(swap, yb, ya)
+    y2 = np.where(swap, ya, yb)
+    dx, dy = np.abs(xb - xa), np.abs(y2 - y1)
+    steep = dy > dx
+    major, minor = np.maximum(dx, dy), np.minimum(dx, dy)
+    e, k = _ramps(major + 1)
+    m = -((major[e] - 2 * minor[e] * k) // (2 * np.maximum(major[e], 1)))
+    line_y = y1[e] + np.where(y2 >= y1, 1, -1)[e] * np.where(steep[e], k, m)
+    line_x = x1[e] + np.where(steep[e], m, k)
+    line_owner = owner[e]
+
+    # crossings: each row from a side's upper vertex down to (not at) its lower one
+    run, rise = (xb - xa) << _XY_SHIFT, yb - ya
+    step = np.abs(run) // np.maximum(np.abs(rise), 1) * np.where((run >= 0) == (rise >= 0), 1, -1)
+    start = np.where(rise > 0, xa, xb) << _XY_SHIFT
+    e, k = _ramps(np.abs(rise))
+    # one key a crossing, sorted by polygon, row, x; crossings lie between their
+    # side's ends, so inside the image: 0 <= x < w << 16 < 2**32
+    row = owner[e] * h + np.minimum(ya, yb)[e] + k
+    key = np.sort((row << 32) | (start[e] + k * step[e]))
+    # every row of a polygon holds an even number of crossings: spans pair them in order
+    left = ((key[0::2] & 0xFFFFFFFF) + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    right = (key[1::2] & 0xFFFFFFFF) >> _XY_SHIFT
+    e, k = _ramps(np.maximum(right - left + 1, 0))
+    span_owner, span_y = np.divmod((key[0::2] >> 32)[e], h)
+    span_x = left[e] + k
+
+    polygon = np.concatenate([line_owner, span_owner])
+    by_polygon = np.argsort(polygon, kind="stable")
+    return (polygon[by_polygon], np.concatenate([line_y, span_y])[by_polygon],
+            np.concatenate([line_x, span_x])[by_polygon])

@@ -48,7 +48,7 @@ import numpy as np
 
 from yolov5_tpu_torch.data.augment import (Albumentations, augment_hsv, copy_paste, flip_lr,
                                            flip_ud, mixup, random_perspective)
-from yolov5_tpu_torch.data.cv import contour_area, fill_poly, resize
+from yolov5_tpu_torch.data.cv import contour_areas, fill_poly, polygon_pixels, resize
 from yolov5_tpu_torch.data.imageio import image_size, imread
 from yolov5_tpu_torch.data.letterbox import letterbox
 
@@ -436,33 +436,61 @@ class YOLODataset:
         return np.ascontiguousarray(im), labels, segments
 
 
-def rasterize_masks(segments, labels, hm, wm, img_px, overlap=True):
-    """Polygon segments (pixels at img_px scale) -> instance masks at (hm,
-    wm), as the JAX package fills them (reference polygons2masks[_overlap]):
-    each polygon scaled to mask pixels and truncated to int32, filled by
-    ``cv.fill_poly`` in descending order of its float area (``contour_area``
-    of the scaled float polygon). With ``overlap`` one (hm, wm) int32 map,
-    segment i written as i + 1 (the smaller on top); else (max(len(labels),
-    1), hm, wm) uint8, one 0/1 mask per segment."""
-    if overlap:
-        out = np.zeros((hm, wm), np.int32)
-    else:
-        out = np.zeros((max(len(labels), 1), hm, wm), np.uint8)
+def _mask_polygons(segments, hm, wm, img_px):
+    """Polygon segments (pixels at img_px scale) at (hm, wm) mask pixels,
+    laid end to end: the scaled float vertices, the same truncated to int32,
+    each polygon's vertex count, and whether it has a vertex outside the
+    frame."""
     scale_x, scale_y = wm / img_px, hm / img_px
-    areas = []
-    polys = []
+    scaled = []
     for seg in segments:
         p = seg.copy()
         p[:, 0] *= scale_x
         p[:, 1] *= scale_y
-        polys.append(p.astype(np.int32))
-        areas.append(contour_area(p.astype(np.float32)))
-    order = np.argsort(-np.asarray(areas)) if areas else []
-    for i in order:
-        if overlap:
-            fill_poly(out, polys[i], int(i) + 1)
+        scaled.append(p)
+    counts = np.asarray([len(p) for p in scaled], np.int64)
+    scaled = np.concatenate(scaled).reshape(-1, 2)
+    pts = scaled.astype(np.int32)
+    off = (pts[:, 0] < 0) | (pts[:, 0] >= wm) | (pts[:, 1] < 0) | (pts[:, 1] >= hm)
+    outside = np.zeros(len(counts), bool)
+    outside[np.repeat(np.arange(len(counts)), counts)[off]] = True
+    return scaled, pts, counts, outside
+
+
+def rasterize_masks(segments, labels, hm, wm, img_px, overlap=True):
+    """Polygon segments (pixels at img_px scale) -> instance masks at (hm,
+    wm), as the JAX package fills them (reference polygons2masks[_overlap]):
+    each polygon scaled to mask pixels and truncated to int32, filled as
+    ``cv.fill_poly`` fills it in descending order of its float area
+    (``contour_area`` of the scaled float polygon). The polygons inside the
+    frame are filled together (``cv.polygon_pixels``); one with a vertex
+    outside it takes ``cv.fill_poly``'s clipping, alone. With ``overlap``
+    one (hm, wm) int32 map, segment i written as i + 1 (the smaller on top);
+    else (max(len(labels), 1), hm, wm) uint8, one 0/1 mask per segment."""
+    if overlap:
+        out = np.zeros((hm, wm), np.int32)
+    else:
+        out = np.zeros((max(len(labels), 1), hm, wm), np.uint8)
+    if not len(segments):
+        return out
+    scaled, pts, counts, outside = _mask_polygons(segments, hm, wm, img_px)
+    inside = np.flatnonzero(~outside)
+    polygon, ys, xs = polygon_pixels(pts[np.repeat(~outside, counts)], counts[inside], hm, wm)
+    pixels = ys * wm + xs
+    starts = np.cumsum(counts) - counts
+    if not overlap:
+        out.reshape(len(out), -1)[inside[polygon], pixels] = 1
+        for i in np.flatnonzero(outside):
+            fill_poly(out[i], pts[starts[i]:starts[i] + counts[i]], 1)
+        return out
+    bounds = np.searchsorted(polygon, np.arange(len(inside) + 1))
+    slot = np.cumsum(~outside) - 1  # segment i's place among those inside
+    flat = out.reshape(-1)
+    for i in np.argsort(-contour_areas(scaled, counts)):
+        if outside[i]:
+            fill_poly(out, pts[starts[i]:starts[i] + counts[i]], int(i) + 1)
         else:
-            fill_poly(out[i], polys[i], 1)
+            flat[pixels[bounds[slot[i]]:bounds[slot[i] + 1]]] = i + 1
     return out
 
 
@@ -753,7 +781,7 @@ class Loader:
             else:
                 from yolov5_tpu_torch.utils.profile import span
 
-                timed = span("load.square", images=len(chunk), polygons=0)
+                timed = span("load.square", images=len(chunk), polygons=0, clipped=0)
             with timed as rec:
                 fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
                 samples = list(map_fn(fetch, chunk[:real]))
@@ -765,8 +793,12 @@ class Loader:
                 else:
                     batch = self._collate(samples)
                 if rec is not None and self.masks:
-                    rec.counts["polygons"] = sum(min(len(seg), self.max_labels)
-                                                 for _, _, seg in samples)
+                    segs = [seg[:self.max_labels] for _, _, seg in samples if seg]
+                    hm = self.ds.img_size // self.mask_ratio
+                    rec.counts["polygons"] = sum(len(seg) for seg in segs)
+                    rec.counts["clipped"] = sum(  # those rasterize_masks fills alone
+                        int(_mask_polygons(seg, hm, hm, self.ds.img_size)[3].sum())
+                        for seg in segs)
         batch["real"] = real
         batch["indices"] = np.asarray(chunk, np.int64)
         return batch
