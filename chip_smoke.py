@@ -3573,7 +3573,7 @@ def _rank_worker_cli(module, *argv):
     from yolov5_tpu_torch.parallel.distributed import rank
 
     states = []
-    for name in ("run", "run_segment", "run_classify"):  # keep the state each run builds
+    for name in ("loop", "run_classify"):  # keep the state each run builds
         mod = importlib.import_module(f"yolov5_tpu_torch.train.{name}")
         mod.init_train_state = (lambda *a, _f=mod.init_train_state, **k:
                                 states.append(_f(*a, **k)) or states[-1])

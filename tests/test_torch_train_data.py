@@ -269,7 +269,7 @@ def test_image_weights_match_jax(train_dir):
 
 def test_multiscale_plan_matches_jax(monkeypatch):
     from yolov5_tpu.train import run as jax_run
-    from yolov5_tpu_torch.train import run as port_run
+    from yolov5_tpu_torch.train import loop as port_run
 
     for imgsz, gs in ((640, 32), (128, 32), (320, 64)):
         assert port_run.multiscale_sizes(imgsz, gs) == jax_run.multiscale_sizes(imgsz, gs)

@@ -2,9 +2,11 @@
 generated BMP set, device augmentation, the device cache, per-epoch EMA
 validation, results.csv, last.ckpt and best.ckpt; best.ckpt re-validated
 by the port's val.run and read by the JAX package; resume equal to an
-uninterrupted run; the CLI with host augmentation (the worker pool and the
-prefetcher) and --evolve; rect, quad, multi-scale (host and device) and
-image weights; the option that is not ported."""
+uninterrupted run (these two also for segmentation, yolov5n-seg on a
+polygon set, through the loop both heads share); the CLI with host
+augmentation (the worker pool and the prefetcher) and --evolve; rect,
+quad, multi-scale (host and device) and image weights; the option that is
+not ported."""
 
 import csv
 import json
@@ -17,12 +19,15 @@ import numpy as np
 import pytest
 import yaml
 
-from tests.torch_port_helpers import write_shapes_dataset
+from tests.torch_port_helpers import write_polygon_dataset, write_shapes_dataset
 from yolov5_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from yolov5_tpu.utils.checkpoint import variables_from_checkpoint as jax_variables
 from yolov5_tpu_torch.eval.evaluator import run as val_run
+from yolov5_tpu_torch.segment import main as segment_main
 from yolov5_tpu_torch.train.run import run
+from yolov5_tpu_torch.train.run_segment import run as seg_run
 from yolov5_tpu_torch.utils.callbacks import Callbacks
+from yolov5_tpu_torch.utils.loggers import Loggers
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = [(96, 128), (128, 96), (128, 128), (64, 128)]
@@ -39,6 +44,17 @@ def data_yaml(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def seg_yaml(tmp_path_factory):
+    root = tmp_path_factory.mktemp("polygons")
+    write_polygon_dataset(root / "set", SHAPES * 3, split="train", seed=1)
+    d = write_polygon_dataset(root / "set", SHAPES * 2, split="val", seed=2)
+    d["train"] = "images/train"
+    path = root / "polygons.yaml"
+    path.write_text(yaml.safe_dump(d))
+    return path
+
+
 def _kw(data_yaml, tmp_path, name, **extra):
     kw = dict(data=str(data_yaml), cfg="yolov5n", epochs=2, batch_size=4, imgsz=128,
               workers=2, project=str(tmp_path / "runs"), name=name, exist_ok=True,
@@ -51,13 +67,65 @@ def _rows(save_dir):
         return list(csv.DictReader(f))
 
 
-def test_run_writes_results_and_checkpoints(data_yaml, tmp_path):
-    best_fitness, results, save_dir = run(**_kw(data_yaml, tmp_path, "a"))
+def _val_detect(data, best):
+    """val.run on best.ckpt: the metrics of the ``val/*`` columns."""
+    res = val_run(str(data), weights=str(best), imgsz=128, batch_size=4, rect=False,
+                  device="cpu", verbose=False)
+    return {f"val/{k}": res[k] for k in ("mp", "mr", "map50", "map")}
+
+
+def _val_segment(data, best):
+    """``segment val`` on best.ckpt: the metrics of the ``val/*`` columns."""
+    res = segment_main(["val", "--device", "cpu", "--data", str(data), "--weights", str(best),
+                        "--imgsz", "128", "--batch-size", "4", "--workers", "1"])
+    return {f"val/{part}_{k}": res[part][k] for part in ("box", "mask") for k in ("map50", "map")}
+
+
+def _cut_by_callback(kw, monkeypatch):
+    """Detection: its callbacks raise as epoch 2 ends, after last.ckpt."""
+    cb = Callbacks()
+
+    def stop(epoch, fitness):
+        if epoch == 1:
+            raise _Interrupt
+
+    cb.register_action("on_fit_epoch_end", callback=stop)
+    return {**kw, "callbacks": cb}
+
+
+def _cut_by_logger(kw, monkeypatch):
+    """Segmentation takes no callbacks: its loggers raise as epoch 3 is
+    logged, before its checkpoint, so last.ckpt holds epoch 2."""
+    log = Loggers.log_metrics
+
+    def stop(self, row, epoch):
+        if epoch == 2:
+            raise _Interrupt
+        return log(self, row, epoch)
+
+    monkeypatch.setattr(Loggers, "log_metrics", stop)
+    return kw
+
+
+# each training head: its run, data, model, summed losses, re-validation and cut
+HEADS = {
+    "detect": (run, "data_yaml", "yolov5n", ("box", "obj", "cls", "total"), _val_detect,
+               _cut_by_callback),
+    "segment": (seg_run, "seg_yaml", "yolov5n-seg", ("box", "obj", "cls", "seg", "total"),
+                _val_segment, _cut_by_logger),
+}
+
+
+@pytest.mark.parametrize("head", HEADS)
+def test_run_writes_results_and_checkpoints(head, tmp_path, request):
+    train, data_fixture, cfg, losses, revalidate, _ = HEADS[head]
+    data_yaml = request.getfixturevalue(data_fixture)
+    best_fitness, results, save_dir = train(**_kw(data_yaml, tmp_path, "a", cfg=cfg))
     rows = _rows(save_dir)
     assert [int(r["step"]) for r in rows] == [0, 1]
     for r in rows:
-        for k in ("train/box", "train/obj", "train/cls", "train/total"):
-            assert np.isfinite(float(r[k])) and float(r[k]) > 0, k
+        for k in losses:
+            assert np.isfinite(float(r[f"train/{k}"])) and float(r[f"train/{k}"]) > 0, k
     for name in ("last.ckpt", "best.ckpt"):
         assert (save_dir / name).exists() and (save_dir / f"{name}.json").exists()
 
@@ -74,13 +142,10 @@ def test_run_writes_results_and_checkpoints(data_yaml, tmp_path):
     v = jax_variables(best)
     assert v["params"]["layers_0"]["conv"]["kernel"].shape == (6, 6, 3, 16)
 
-    # val.run on best.ckpt reproduces the training-time EMA validation
-    best_epoch = int(best_meta["epoch"])
-    ref = rows[best_epoch]
-    res = val_run(str(data_yaml), weights=str(save_dir / "best.ckpt"), imgsz=128,
-                  batch_size=4, rect=False, device="cpu", verbose=False)
-    for k in ("mp", "mr", "map50", "map"):
-        assert res[k] == pytest.approx(float(ref[f"val/{k}"]), rel=1e-9, abs=1e-12), k
+    # validation of best.ckpt reproduces the training-time EMA validation
+    ref = rows[int(best_meta["epoch"])]
+    for k, got in revalidate(data_yaml, save_dir / "best.ckpt").items():
+        assert got == pytest.approx(float(ref[k]), rel=1e-9, abs=1e-12), k
     assert best_fitness == pytest.approx(max(float(r["fitness"]) for r in rows))
 
 
@@ -88,31 +153,27 @@ class _Interrupt(Exception):
     pass
 
 
-def test_resume_equals_uninterrupted_run(data_yaml, tmp_path):
+@pytest.mark.parametrize("head", HEADS)
+def test_resume_equals_uninterrupted_run(head, tmp_path, request, monkeypatch):
     """3 epochs straight against 2 epochs, an interruption, and --resume of
     the run dir: the third epoch's losses, metrics and weights are equal."""
-    _, _, straight = run(**_kw(data_yaml, tmp_path, "straight", epochs=3))
+    train, data_fixture, cfg, _, _, cut = HEADS[head]
+    data_yaml = request.getfixturevalue(data_fixture)
+    _, _, straight = train(**_kw(data_yaml, tmp_path, "straight", epochs=3, cfg=cfg))
 
-    cb = Callbacks()
-
-    def stop(epoch, fitness):
-        if epoch == 1:
-            raise _Interrupt
-
-    cb.register_action("on_fit_epoch_end", callback=stop)
-    with pytest.raises(_Interrupt):
-        run(**_kw(data_yaml, tmp_path, "cut", epochs=3), callbacks=cb)
-    cut = tmp_path / "runs" / "cut"
-    _, _, resumed = run(data=str(data_yaml), resume=str(cut / "last.ckpt"),
-                        project=str(tmp_path / "runs"), device="cpu")
-    assert resumed == cut
-    a, b = _rows(straight), _rows(cut)
+    with monkeypatch.context() as mp, pytest.raises(_Interrupt):
+        train(**cut(_kw(data_yaml, tmp_path, "cut", epochs=3, cfg=cfg), mp))
+    cut_dir = tmp_path / "runs" / "cut"
+    _, _, resumed = train(data=str(data_yaml), resume=str(cut_dir / "last.ckpt"),
+                          project=str(tmp_path / "runs"), device="cpu")
+    assert resumed == cut_dir
+    a, b = _rows(straight), _rows(cut_dir)
     assert len(a) == len(b) == 3
     for k in a[2]:
         if k != "train/imgs_per_sec":
             assert float(a[2][k]) == pytest.approx(float(b[2][k]), rel=1e-6, abs=1e-9), k
     pa, _ = jax_load_checkpoint(straight / "last.ckpt")
-    pb, _ = jax_load_checkpoint(cut / "last.ckpt")
+    pb, _ = jax_load_checkpoint(cut_dir / "last.ckpt")
     assert int(pa["step"]) == int(pb["step"]) == 9
     ka = pa["ema_params"]["layers_24"]["m_2"]["kernel"]
     np.testing.assert_allclose(pb["ema_params"]["layers_24"]["m_2"]["kernel"], ka,

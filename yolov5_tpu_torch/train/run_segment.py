@@ -3,7 +3,7 @@
 reference's segment/train.py and segment/val.py), on one device or on one
 device per process under torchrun.
 
-Training is ``train/run.py``'s loop with masks: the loader fills each
+Training is ``train/loop.py``'s run with masks: the loader fills each
 batch's GT masks from its polygons (``data.dataset.rasterize_masks``), the
 model returns (maps, proto) and ``ComputeSegmentLoss`` adds the mask term.
 By default the host augments; with ``device_aug`` (separable geometry, a
@@ -16,7 +16,7 @@ mask mAP against the GT masks at image resolution, the mask IoUs counted in
 float32 on the device image by image. ``last.ckpt`` keeps the optimizer;
 both files carry the model's cfg and live anchors, so that ``segment val``
 rebuilds the model. Loggers and plots (``results.png``, ``labels.png``
-unless ``noplots``) as in ``train/run.py``; several ranks as there too:
+unless ``noplots``) as in detection training; several ranks as there too:
 each trains on its shard of the global batch (``batch_size``), the mask
 loss's normaliser is the global batch's, and rank 0 validates, saves and
 logs.
@@ -31,35 +31,22 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
-import yaml
 
 from yolov5_tpu_torch.data.cv import resize
 from yolov5_tpu_torch.data.dataset import create_loader
-from yolov5_tpu_torch.data.device_cache import (build_cache_arrays, cache_nbytes,
-                                                device_memory_budget, index_batches, to_device)
 from yolov5_tpu_torch.eval.coco import COCO80_TO_COCO91
 from yolov5_tpu_torch.eval.evaluator import _scale_to_native, _xywhn_to_xyxy
 from yolov5_tpu_torch.eval.metrics import ap_per_class, process_batch
 from yolov5_tpu_torch.eval.rle import mask_to_rle
+from yolov5_tpu_torch.infer import resolve_device
 from yolov5_tpu_torch.infer_segment import Segmenter
 from yolov5_tpu_torch.models.yolo import SegmentationModel
 from yolov5_tpu_torch.ops.masks import process_mask
 from yolov5_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression
-from yolov5_tpu_torch.parallel.distributed import (all_reduce_sum, broadcast_object,
-                                                   init_distributed, is_main, rank, rank_batch,
-                                                   rank_device, world)
-from yolov5_tpu_torch.parallel.mesh import replicate
+from yolov5_tpu_torch.parallel.distributed import init_distributed, rank, rank_device
+from yolov5_tpu_torch.train.loop import Run, device_cache, ema_weights, resume_options
 from yolov5_tpu_torch.train.loss import ComputeSegmentLoss
-from yolov5_tpu_torch.train.optim import Optimizer
-from yolov5_tpu_torch.train.prefetch import prefetch
-from yolov5_tpu_torch.train.run import (EarlyStopper, load_initial_weights, multiscale_epoch_plan,
-                                        multiscale_sizes, resume_options)
-from yolov5_tpu_torch.train.trainer import init_train_state, make_train_step, scale_hyp
-from yolov5_tpu_torch.utils.checkpoint import (anchors_to_yaml, load_checkpoint,
-                                               restore_train_state, save_checkpoint)
-from yolov5_tpu_torch.utils.general import check_dataset, check_img_size, init_seeds, run_dir
-from yolov5_tpu_torch.utils.hyp import load_hyp
-from yolov5_tpu_torch.utils.loggers import Loggers
+from yolov5_tpu_torch.train.trainer import make_train_step
 from yolov5_tpu_torch.utils.profile import span
 
 IOUV = np.linspace(0.5, 0.95, 10)
@@ -238,16 +225,6 @@ def evaluate_segment(forward, loader, device, nc, conf_thres=0.001, iou_thres=0.
     return out
 
 
-def ema_segmenter(state, half, device):
-    """A ``Segmenter`` (BN folded) of the EMA weights with the live anchors
-    as the checkpoint meta stores them: ``segment val`` on the saved
-    ``best.ckpt`` rebuilds exactly this model."""
-    model = state.model
-    cfg = dict(model.cfg, nc=model.nc, anchors=anchors_to_yaml(model.anchors))
-    return Segmenter({**state.ema.params, **state.ema.batch_stats}, cfg=cfg, device=device,
-                     half=half)
-
-
 def _resample_masks(masks, size):
     """GT masks (..., h, w) to (..., size, size) by nearest pixel, as the
     JAX package follows a host multi-scale resize."""
@@ -266,25 +243,14 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
     """Train an instance-segmentation model on ``device``. Returns
     (best_fitness, results of the last validation, save_dir)."""
     init_distributed(device)
-    device_arg, device = device, rank_device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"run_segment.run(device={str(device)!r}): no CUDA device is "
-                           "available")
+    device_arg, device = device, resolve_device(str(rank_device(device)), "run_segment.run")
     if resume and _resume_ckpt is None:
         saved, ckpt_path = resume_options(resume, project)
         if saved is not None:
             return run(**saved, _resume_ckpt=str(ckpt_path), save_dir=str(ckpt_path.parent),
                        device=device_arg)
-        _resume_ckpt = str(ckpt_path)
-        save_dir = save_dir or str(ckpt_path.parent)
-    n_ranks, main = world(), is_main()
-    rank_bs = rank_batch(batch_size)
-    if sync_bn:
-        print("--sync-bn: cross-device BN stats are always on")
-    init_seeds(seed)
-    data_dict = check_dataset(data)
-    nc = 1 if single_cls else int(data_dict["nc"])
-    opt_dict = {k: (str(v) if isinstance(v, Path) else v) for k, v in dict(
+        _resume_ckpt, save_dir = str(ckpt_path), save_dir or str(ckpt_path.parent)
+    r = Run(SegmentationModel, device, dict(
         data=data, cfg=cfg, hyp=hyp, epochs=epochs, batch_size=batch_size, imgsz=imgsz,
         optimizer=optimizer, cos_lr=cos_lr, seed=seed, workers=workers,
         max_labels=max_labels, single_cls=single_cls, mask_ratio=mask_ratio,
@@ -293,194 +259,59 @@ def run(data, cfg="yolov5n-seg", hyp=None, epochs=100, batch_size=16, imgsz=640,
         segments_v=segments_v, weights=weights, patience=patience, freeze=freeze,
         label_smoothing=label_smoothing, save_period=save_period,
         noautoanchor=noautoanchor, noplots=noplots, multi_scale=multi_scale,
-    ).items()}
-    hyp = load_hyp(hyp)
-    if label_smoothing:
-        hyp["label_smoothing"] = float(label_smoothing)
-    amp = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
-    overlap = not no_overlap
-
-    save_dir = run_dir(save_dir, project, name, exist_ok)
-    loggers = None
-    if main:
-        save_dir.mkdir(parents=True, exist_ok=True)
-        (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp, sort_keys=False))
-        (save_dir / "opt.yaml").write_text(yaml.safe_dump(opt_dict, sort_keys=False))
-        loggers = Loggers(save_dir)
-    last, best = save_dir / "last.ckpt", save_dir / "best.ckpt"
-
-    start_epoch, best_fitness, resume_payload, anchors = 0, 0.0, None, None
-    if _resume_ckpt:
-        resume_payload, meta = load_checkpoint(_resume_ckpt)
-        anchors = meta.get("anchors")  # autoanchor may have evolved them
-        start_epoch = int(meta.get("epoch", -1)) + 1
-        best_fitness = float(meta.get("best_fitness", 0.0))
-        if start_epoch <= 0:
-            raise ValueError(f"{_resume_ckpt}: training is finished, nothing to resume")
-        if epochs < start_epoch:
-            print(f"{_resume_ckpt} has been trained for {start_epoch - 1} epochs; "
-                  f"fine-tuning for {epochs} more epochs")
-            epochs += start_epoch - 1
-    model = SegmentationModel(cfg, nc=nc, seed=seed, anchors=anchors)
-    if data_dict.get("names"):
-        model.names = {int(k): v for k, v in data_dict["names"].items()}
-    if weights and not _resume_ckpt:
-        load_initial_weights(model, weights)
-    imgsz = check_img_size(imgsz, s=max(model.stride))
+    ), save_dir=save_dir, exist_ok=exist_ok, sync_bn=sync_bn, resume_ckpt=_resume_ckpt)
+    nc, imgsz, hyp, overlap = r.nc, r.imgsz, r.hyp, not no_overlap
 
     train_ds, train_loader = create_loader(
-        data_dict["train"], img_size=imgsz, batch_size=rank_bs, augment=True,
+        r.data["train"], img_size=imgsz, batch_size=r.rank_bs, augment=True,
         hyp=hyp, workers=workers, max_labels=max_labels, seed=seed, single_cls=single_cls,
         cache=cache if cache in ("ram", "disk") else None, masks=True,
-        mask_ratio=mask_ratio, overlap=overlap, shard=(rank(), n_ranks))
-    if not noautoanchor and not _resume_ckpt and not weights:
-        from yolov5_tpu_torch.utils.autoanchor import check_anchors
-
-        new_anchors = broadcast_object(check_anchors(
-            train_ds, model, thr=hyp.get("anchor_t", 4.0), imgsz=imgsz) if main else None)
-        if new_anchors != model.anchors:
-            model.anchors = new_anchors
-            model.cfg["anchors"] = anchors_to_yaml(new_anchors)
-            print("autoanchor: anchors updated")
+        mask_ratio=mask_ratio, overlap=overlap, shard=(rank(), r.n_ranks))
+    r.autoanchor(train_ds)
     val_loader = None
-    if data_dict.get("val") and not noval and main:
+    if r.data.get("val") and not noval and r.main:
         _, val_loader = create_loader(
-            data_dict["val"], img_size=imgsz, batch_size=batch_size, workers=workers,
+            r.data["val"], img_size=imgsz, batch_size=batch_size, workers=workers,
             max_labels=max_labels, single_cls=single_cls, masks=True, mask_ratio=mask_ratio,
             overlap=overlap)
-    nb = len(train_loader)
-    if nb == 0:
-        raise ValueError(f"train loader is empty for {data_dict.get('train')}")
-
-    model = model.to(device).to(memory_format=torch.channels_last)
-    ms_sizes, ms_rng = [], None
-    if multi_scale:
-        ms_sizes = multiscale_sizes(imgsz, max(model.stride))
-        ms_rng = np.random.default_rng(seed + 0x5CA1E)
-        print(f"multi-scale: per-batch sizes {ms_sizes}")
-    hyp_scaled = scale_hyp(hyp, nl=len(model.stride), nc=nc, imgsz=imgsz)
-    loss_fn = ComputeSegmentLoss(model.anchors_per_stride, nc, hyp_scaled, nm=model.nm,
-                                 overlap=overlap, seg_k=seg_k)
-    opt = Optimizer(dict(model.named_parameters()), hyp_scaled, epochs=epochs,
-                    steps_per_epoch=nb, batch_size=batch_size, name=optimizer, cos_lr=cos_lr,
-                    freeze=freeze)
-    state = init_train_state(model, opt)
-    if resume_payload is not None:
-        restore_train_state(state, resume_payload)
-        resume_payload = None
-    replicate(state)
+    loss_fn = r.build(train_loader, lambda h: ComputeSegmentLoss(
+        r.model.anchors_per_stride, nc, h, nm=r.model.nm, overlap=overlap, seg_k=seg_k))
 
     # the device path: the set and its polygons in device memory, mosaic,
     # HSV, flips and the GT masks in the step (separable geometry, no
     # copy-paste); else the host augments and fills the masks
-    cache_dev = None
     separable = not any(hyp.get(k, 0) for k in ("degrees", "shear", "perspective",
                                                   "copy_paste"))
-    if device_aug and separable and hyp.get("mosaic", 0) > 0 and cache in (None, "device"):
-        need = cache_nbytes(train_ds, max_labels, segments_v=segments_v)
-        if cache == "device" or need <= device_memory_budget(device):
-            train_ds.cache = None
-            cache_dev = to_device(build_cache_arrays(train_ds, max_labels, segments_v),
-                                  device)
-            print(f"device cache: {len(train_ds)} images + segments ({need / 1e6:.0f} MB) "
-                  f"on {device}")
+    cache_dev = (device_cache(train_ds, max_labels, cache, device, segments_v)
+                 if device_aug and separable and hyp.get("mosaic", 0) > 0
+                 and cache in (None, "device") else None)
     aug_hyp = hyp if cache_dev is not None else None
-    sizes = ms_sizes if multi_scale and cache_dev is not None else [None]
-    step_fns = {sz: make_train_step(loss_fn, device_aug_hyp=aug_hyp, dtype=amp, seed=seed,
-                                    ms_size=sz, has_masks=True, overlap=overlap,
-                                    mask_shape=((sz or imgsz) // mask_ratio,) * 2)
-                for sz in sizes}
 
-    def host_prep(batch):
-        """The batch's arrays for the step; a host multi-scale size drawn
-        per batch resizes its images (bilinear) and its masks (nearest)."""
-        batch = {k: batch[k] for k in ("images", "targets", "valid", "masks")}
-        if multi_scale:
-            s_b = int(ms_rng.choice(ms_sizes))
-            if s_b != imgsz:
-                batch["images"] = np.stack([resize(im, (s_b, s_b), "linear")
-                                            for im in batch["images"]])
-                batch["masks"] = _resample_masks(batch["masks"], s_b // mask_ratio)
+    def rescale(batch, size):  # images bilinear, masks nearest
+        batch["images"] = np.stack([resize(im, (size, size), "linear")
+                                    for im in batch["images"]])
+        batch["masks"] = _resample_masks(batch["masks"], size // mask_ratio)
         return batch
 
-    stopper = EarlyStopper(patience)
-    if main:
-        print(f"seg training {cfg} on {data_dict.get('train')}: {len(train_ds)} imgs, {nb} "
-              f"steps/epoch, {device}" + (f" x {n_ranks} ranks" if n_ranks > 1 else "")
-              + f", imgsz {imgsz}")
-    results = {}
-    t_start = time.time()
-    try:
-        for epoch in range(start_epoch, epochs):
-            train_loader.set_epoch(epoch)
-            t0 = time.time()
-            if cache_dev is not None:
-                idx_epoch = np.stack([b["idx"] for b in index_batches(train_loader,
-                                                                      whole=n_ranks > 1)])
-                plan = (multiscale_epoch_plan(idx_epoch, ms_sizes, ms_rng) if multi_scale
-                        else [(None, idx_epoch)])
-                feed = (({"idx": idx}, size) for size, rows in plan
-                        for idx in torch.from_numpy(rows).to(device))
-            else:
-                feed = ((batch, None) for batch in
-                        prefetch(iter(train_loader), device, depth=2, transform=host_prep))
-            agg = None
-            for batch, size in feed:
-                _, metrics = step_fns[size](state, batch, cache_dev)
-                agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
-            # the epoch's one wait for the device: the ranks' shares summed
-            keys = ("box", "obj", "cls", "seg", "total", "seg_overflow")
-            agg = dict(zip(keys, all_reduce_sum(torch.stack([agg[k] for k in keys])).tolist()))
-            dt = time.time() - t0
-            row = {f"train/{k}": agg[k] / nb for k in keys[:5]}
-            row["train/imgs_per_sec"] = nb * batch_size / dt
-            if agg["seg_overflow"] > 0 and main:
-                # no silent caps: candidates past seg_k trained no mask
-                print(f"WARNING: {agg['seg_overflow']:.0f} mask-loss candidates exceeded "
-                      f"--seg-k {seg_k} this epoch and were dropped; raise --seg-k to "
-                      "restore full mask supervision")
+    def overflow(sums):  # no silent caps: candidates past seg_k trained no mask
+        if sums["seg_overflow"] > 0 and r.main:
+            print(f"WARNING: {sums['seg_overflow']:.0f} mask-loss candidates exceeded "
+                  f"--seg-k {seg_k} this epoch and were dropped; raise --seg-k to "
+                  "restore full mask supervision")
 
-            fi, stop = 0.0, False
-            if main:  # the other ranks wait for its fitness below
-                if val_loader is not None:
-                    seg = ema_segmenter(state, amp == torch.bfloat16, device)
-                    results = evaluate_segment(seg.forward, val_loader, device, nc,
-                                               overlap=overlap)
-                    row.update({"val/box_map50": results["box"]["map50"],
-                                "val/box_map": results["box"]["map"],
-                                "val/mask_map50": results["mask"]["map50"],
-                                "val/mask_map": results["mask"]["map"]})
-                    fi = results["fitness"]
-                row["fitness"] = fi
-                loggers.log_metrics(row, epoch)
-                print(f"epoch {epoch + 1}/{epochs}  "
-                      + "  ".join(f"{k.split('/')[-1]} {v:.4g}" for k, v in row.items()))
+    def validate(state):
+        seg = Segmenter(*ema_weights(state), device=device, half=r.amp == torch.bfloat16)
+        results = evaluate_segment(seg.forward, val_loader, device, nc, overlap=overlap)
+        return ({f"val/{part}_{k}": results[part][k] for part in ("box", "mask")
+                 for k in ("map50", "map")}, results["fitness"], results)
 
-                best_fitness = max(best_fitness, fi)
-                if not nosave:
-                    save_checkpoint(last, state, epoch, best_fitness, include_opt=True)
-                    if val_loader is not None and best_fitness == fi:
-                        save_checkpoint(best, state, epoch, best_fitness)
-                    if save_period > 0 and epoch % save_period == 0:
-                        save_checkpoint(save_dir / f"epoch{epoch}.ckpt", state, epoch,
-                                        best_fitness)
-                stop = stopper(epoch, fi)
-                if stop:
-                    print(f"early stopping at epoch {epoch + 1} "
-                          f"(no fitness gain in {patience} epochs)")
-            best_fitness, stop, results = broadcast_object((best_fitness, stop, results))
-            if stop:
-                break
-    finally:
-        train_loader.close()
-    if main:
-        print(f"done in {(time.time() - t_start) / 3600:.3f}h, best fitness {best_fitness:.4f}")
-        if not noplots:
-            from yolov5_tpu_torch.utils.plots import plot_labels, plot_results
-
-            plot_results(save_dir / "results.csv")
-            plot_labels(train_ds.labels, model.names, save_dir)
-        if best.exists():
-            loggers.log_model(best)
-        loggers.close()
-    return best_fitness, results, save_dir
+    return r.fit(
+        f"seg training {cfg}", train_ds, train_loader,
+        lambda size: make_train_step(loss_fn, device_aug_hyp=aug_hyp, dtype=r.amp, seed=seed,
+                                     ms_size=size, has_masks=True, overlap=overlap,
+                                     mask_shape=((size or imgsz) // mask_ratio,) * 2),
+        ms_device=multi_scale and cache_dev is not None, cache_dev=cache_dev, rescale=rescale,
+        batch_keys=("images", "targets", "valid", "masks"),
+        keys=("box", "obj", "cls", "seg", "total"), counters=("seg_overflow",),
+        validate=validate if val_loader is not None else None, epoch_end=overflow,
+        log_final=lambda path, *_: r.loggers.log_model(path), noplots=noplots)
