@@ -12,8 +12,8 @@ import yolov5_tpu.data.dataset as jds
 import yolov5_tpu.utils.general as jgen
 import yolov5_tpu_torch.data.dataset as pds
 import yolov5_tpu_torch.utils.general as pgen
-from tests.torch_port_helpers import write_shapes_dataset
-from yolov5_tpu_torch.data.imageio import bmp_bytes, imwrite
+from tests.torch_port_helpers import write_polygon_dataset, write_shapes_dataset
+from yolov5_tpu_torch.data.imageio import bmp_bytes, imread, imwrite
 from yolov5_tpu_torch.data.letterbox import letterbox
 from yolov5_tpu_torch.utils import profile
 
@@ -234,6 +234,87 @@ def test_rect_batch_equals_letterbox(tmp_path, kind, cache):
     for k in ("images", "targets", "valid"):
         np.testing.assert_array_equal(got[k], want[k])
     assert [(s.name, s.counts) for s in spans] == [("load.rect", {"images": 4, "resized": 4})]
+
+
+def _square_reference(loader, chunk, real, base_seed):
+    """A square batch as ``get_item`` (letterbox's canvas) and a BGR -> RGB
+    copy of each image build it, its GT masks by ``rasterize_masks``."""
+    ds, cap = loader.ds, loader.max_labels
+    s = ds.img_size
+    samples = [ds.get_item(int(i), np.random.default_rng(base_seed + int(i)))
+               for i in chunk[:real]]
+    samples += [samples[-1]] * (len(chunk) - real)
+    images = np.zeros((len(chunk), s, s, 3), np.uint8)
+    targets = np.zeros((len(chunk), cap, 5), np.float32)
+    valid = np.zeros((len(chunk), cap), bool)
+    hm = s // loader.mask_ratio
+    masks = (np.zeros((len(chunk), hm, hm), np.int32) if loader.overlap
+             else np.zeros((len(chunk), cap, hm, hm), np.uint8))
+    for b, (im, labels, segments) in enumerate(samples):
+        images[b] = im[..., ::-1]
+        n = min(len(labels), cap)
+        targets[b, :n] = labels[:n]
+        valid[b, :n] = True
+        if segments:
+            m = pds.rasterize_masks(segments[:cap], labels, hm, hm, s, overlap=loader.overlap)
+            if loader.overlap:
+                masks[b] = m
+            else:
+                masks[b, :m.shape[0]] = m
+    want = {"images": images, "targets": targets, "valid": valid}
+    if loader.masks:
+        want["masks"] = masks
+    return want
+
+
+SQUARE_CASES = [(source, masks, False) for source in ("bmp", "bmp-top-down", "ram")
+                for masks in ("off", "overlap", "per-instance")]
+SQUARE_CASES += [("bmp", "off", True), ("bmp", "overlap", True)]
+
+
+@pytest.mark.parametrize("source, masks, augment", SQUARE_CASES)
+def test_square_batch_equals_letterbox(tmp_path, source, masks, augment):
+    """The square loader's batches against ``get_item`` -> ``letterbox``'s
+    canvas -> ``[..., ::-1]`` -> ``rasterize_masks``: images, targets, valid
+    and GT masks byte for byte with their dtypes, over every batch of a pass
+    (the padded final batch included, cached reads on a second pass), with
+    images grown and shrunk by ``load_image`` and odd paddings. A validation
+    batch writes every slot once (``load.square`` counts ``written ==
+    images``); an augmented batch is built as before and counts 0."""
+    write_polygon_dataset(tmp_path, RECT_SHAPES)
+    root = tmp_path / "images" / "val"
+    if source == "bmp-top-down":
+        for path in root.glob("*.bmp"):
+            _write_bmp_top_down(path, imread(path))
+        assert struct.unpack_from("<i", path.read_bytes(), 22)[0] < 0
+    ds, loader = pds.create_loader(str(root), img_size=160, batch_size=4, max_labels=8,
+                                   workers=1 if augment else 3, augment=augment,
+                                   cache="ram" if source == "ram" else False,
+                                   masks=masks != "off", overlap=masks != "per-instance")
+    grown = shrunk = odd = 0
+    for epoch in range(2 if source == "ram" else 1):
+        loader.set_epoch(epoch)
+        with profile.recording() as spans:
+            batches = list(loader)
+        assert len(batches) == (2 if augment else 3) and batches[-1]["real"] == (4 if augment
+                                                                                 else 1)
+        square = [s for s in spans if s.name == "load.square"]
+        assert len(square) == len(batches)
+        for batch, span in zip(batches, square):
+            chunk, real = batch["indices"], batch["real"]
+            assert span.counts["images"] == len(chunk)
+            assert span.counts["written"] == (0 if augment else len(chunk))
+            want = _square_reference(loader, chunk, real, loader.seed * 100003 + epoch * 1009)
+            assert batch.keys() - {"real", "indices", "paths"} == want.keys()
+            for k in want:
+                assert batch[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(batch[k], want[k])
+            for i in chunk[:real]:
+                _, _, (rh, rw) = ds.load_image(int(i))
+                grown += max(ds.shapes[i]) < 160
+                shrunk += max(ds.shapes[i]) > 160
+                odd += (160 - rh) % 2 or (160 - rw) % 2
+    assert augment or (grown and shrunk and odd)  # the cases the shapes are there for
 
 
 def test_loader_single_cls_and_unported_options(dataset):

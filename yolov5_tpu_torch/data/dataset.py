@@ -401,13 +401,7 @@ class YOLODataset:
         else:
             im, _, (h, w) = self.load_image(index)
             im, ratio, pad = letterbox(im, s, auto=False, scaleup=self.augment)
-            labels = self._denorm(self.labels[index], ratio[0] * w, ratio[1] * h, pad[0], pad[1])
-            segments = []
-            for seg in self.segments[index]:
-                seg = seg.copy()
-                seg[:, 0] = seg[:, 0] * ratio[0] * w + pad[0]
-                seg[:, 1] = seg[:, 1] * ratio[1] * h + pad[1]
-                segments.append(seg)
+            labels, segments = self._letterbox_labels(index, ratio, w, h, pad)
             if self.augment and not self.device_aug:
                 im, labels, segments = random_perspective(
                     im, labels, segments, degrees=hyp["degrees"], translate=hyp["translate"],
@@ -428,12 +422,67 @@ class YOLODataset:
             if rng.random() < hyp["fliplr"]:
                 im, labels = flip_lr(im, labels, segments)
 
-        labels = self._norm(labels, im.shape[1], im.shape[0])
-        if len(labels):  # drop degenerate rows
+        labels, segments = self._framed(labels, segments, im.shape[1], im.shape[0])
+        return np.ascontiguousarray(im), labels, segments
+
+    def letterbox_into(self, index, out):
+        """``get_item`` of a validation set with the image written once into
+        ``out`` ((s, s, 3) uint8, RGB): the slot is filled with letterbox's
+        114 and the image drawn where ``letterbox`` draws it
+        (``write_letterboxed``), with no canvas and no channel-reversed copy.
+        Returns get_item's labels and segments, by the same arithmetic."""
+        im, _, (h, w) = self.load_image(index)
+        out.fill(114)
+        r, pad, _ = write_letterboxed(out, im)
+        labels, segments = self._letterbox_labels(index, (r, r), w, h, pad)
+        return self._framed(labels, segments, out.shape[1], out.shape[0])
+
+    def _letterbox_labels(self, index, ratio, w, h, pad):
+        """Image ``index``'s labels (pixel xyxy) and segments (pixels) in a
+        letterbox frame that draws its (h, w) load at ``ratio``, offset by
+        ``pad``."""
+        labels = self._denorm(self.labels[index], ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+        segments = []
+        for seg in self.segments[index]:
+            seg = seg.copy()
+            seg[:, 0] = seg[:, 0] * ratio[0] * w + pad[0]
+            seg[:, 1] = seg[:, 1] * ratio[1] * h + pad[1]
+            segments.append(seg)
+        return labels, segments
+
+    def _framed(self, labels, segments, w, h):
+        """Pixel xyxy labels normalized (and clipped) to a (h, w) frame,
+        degenerate rows dropped with their segments."""
+        labels = self._norm(labels, w, h)
+        if len(labels):
             keep = (labels[:, 3] > 1e-4) & (labels[:, 4] > 1e-4)
             labels = labels[keep]
             segments = [s_ for s_, k in zip(segments, keep) if k] if segments else []
-        return np.ascontiguousarray(im), labels, segments
+        return labels, segments
+
+
+def write_letterboxed(dst, im):
+    """Write BGR ``im`` once into the RGB slot ``dst`` (h, w, 3), which holds
+    the pad value already, where ``letterbox(im, (h, w), auto=False,
+    scaleup=False)`` draws it: byte for byte that canvas's ``[..., ::-1]``.
+    The image is resized (linear) only where it exceeds the slot, and written
+    a channel plane at a time: a canvas with letterbox's per-channel colour
+    fill and a strided ``[..., ::-1]`` copy cost several times as much.
+    Returns the scale r, letterbox's unrounded pads (dw, dh) and whether the
+    image was resized."""
+    h, w = dst.shape[:2]
+    rh, rw = im.shape[:2]
+    r = min(h / rh, w / rw, 1.0)
+    nw, nh = int(round(rw * r)), int(round(rh * r))
+    dw, dh = (w - nw) / 2, (h - nh) / 2
+    resized = (rw, rh) != (nw, nh)
+    if resized:
+        im = resize(im, (nw, nh), "linear")
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    out = dst[top:top + nh, left:left + nw]
+    for c in range(3):  # BGR -> RGB
+        out[..., c] = im[..., 2 - c]
+    return r, (dw, dh), resized
 
 
 def _mask_polygons(segments, hm, wm, img_px):
@@ -706,18 +755,18 @@ class Loader:
             chunk.append(chunk[-1])
         return chunk, real
 
-    def _collate(self, samples):
-        bs = len(samples)
+    def _collate(self, images, rows):
+        """The batch of ``images`` (bs, s, s, 3) RGB and each slot's
+        (labels, segments): targets, valid and, with masks, the GT masks."""
+        bs = len(rows)
         s = self.ds.img_size
-        images = np.zeros((bs, s, s, 3), np.uint8)
         targets = np.zeros((bs, self.max_labels, 5), np.float32)
         valid = np.zeros((bs, self.max_labels), bool)
         hm = wm = s // self.mask_ratio
         if self.masks:
             gt_masks = (np.zeros((bs, hm, wm), np.int32) if self.overlap
                         else np.zeros((bs, self.max_labels, hm, wm), np.uint8))
-        for b, (im, labels, segments) in enumerate(samples):
-            images[b] = im[..., ::-1]  # BGR -> RGB
+        for b, (labels, segments) in enumerate(rows):
             n = min(len(labels), self.max_labels)
             if n:
                 targets[b, :n] = labels[:n]
@@ -768,6 +817,19 @@ class Loader:
                 valid[o, :n] = True
         return {"images": images, "targets": targets, "valid": valid}
 
+    def _letterbox_batch(self, chunk, real, map_fn):
+        """A square validation batch's images and each slot's (labels,
+        segments): ``map_fn`` (the loader's threads) runs
+        ``YOLODataset.letterbox_into`` for each real image, which reads it and
+        writes it once into its slot of the uninitialised batch, 114 fill
+        included; a padded slot copies the last real image."""
+        s = self.ds.img_size
+        images = np.empty((len(chunk), s, s, 3), np.uint8)
+        rows = list(map_fn(lambda b: self.ds.letterbox_into(chunk[b], images[b]), range(real)))
+        images[real:] = images[real - 1]
+        rows += [rows[-1]] * (len(chunk) - real)
+        return images, rows
+
     def _build(self, chunk, real, base_seed, bi, map_fn=map):
         """Batch ``bi`` of an epoch: indices ``chunk`` (``real`` of them not
         padding), sample i drawing from ``default_rng(base_seed + i)``."""
@@ -781,19 +843,31 @@ class Loader:
             else:
                 from yolov5_tpu_torch.utils.profile import span
 
-                timed = span("load.square", images=len(chunk), polygons=0, clipped=0)
+                timed = span("load.square", images=len(chunk), polygons=0, clipped=0,
+                             written=0)
             with timed as rec:
-                fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
-                samples = list(map_fn(fetch, chunk[:real]))
-                samples += [samples[-1]] * (len(chunk) - real)
-                if self.quad:  # the global batch's draws, this rank's groups
-                    draws = np.random.default_rng((base_seed + bi * 7919) * 31 + 7).random(
-                        len(chunk) * self.world // 4)
-                    batch = self._quad_collate(samples, draws[self.rank::self.world])
-                else:
-                    batch = self._collate(samples)
+                if self.ds.augment or self.quad:
+                    fetch = lambda i: self.ds.get_item(i, np.random.default_rng(base_seed + i))
+                    samples = list(map_fn(fetch, chunk[:real]))
+                    samples += [samples[-1]] * (len(chunk) - real)
+                    rows = [sample[1:] for sample in samples]
+                    if self.quad:  # the global batch's draws, this rank's groups
+                        draws = np.random.default_rng((base_seed + bi * 7919) * 31 + 7).random(
+                            len(chunk) * self.world // 4)
+                        batch = self._quad_collate(samples, draws[self.rank::self.world])
+                    else:
+                        s = self.ds.img_size
+                        images = np.zeros((len(chunk), s, s, 3), np.uint8)
+                        for b, (im, _, _) in enumerate(samples):
+                            images[b] = im[..., ::-1]  # BGR -> RGB
+                        batch = self._collate(images, rows)
+                else:  # validation: each image written once into its slot
+                    images, rows = self._letterbox_batch(chunk, real, map_fn)
+                    batch = self._collate(images, rows)
+                    if rec is not None:
+                        rec.counts["written"] = len(chunk)
                 if rec is not None and self.masks:
-                    segs = [seg[:self.max_labels] for _, _, seg in samples if seg]
+                    segs = [seg[:self.max_labels] for _, seg in rows if seg]
                     hm = self.ds.img_size // self.mask_ratio
                     rec.counts["polygons"] = sum(len(seg) for seg in segs)
                     rec.counts["clipped"] = sum(  # those rasterize_masks fills alone
@@ -874,12 +948,10 @@ class Loader:
 
     def _rect_batch(self, chunk, hw):
         """Load + letterbox a batch to the rect shape (h, w); labels
-        re-normalized to that frame. Byte for byte ``letterbox(im, (h, w),
-        auto=False, scaleup=False)`` and a BGR -> RGB flip of each image, but
-        each image is written once, a channel plane at a time, into a batch
-        filled with the pad value: letterbox's canvas, its per-channel colour
-        fill and a strided ``[..., ::-1]`` copy cost several times as much.
-        Span ``load.rect`` counts the ``images`` written and those
+        re-normalized to that frame. Each image is written once into a batch
+        filled with the pad value (``write_letterboxed``): byte for byte
+        ``letterbox(im, (h, w), auto=False, scaleup=False)`` and a BGR -> RGB
+        flip. Span ``load.rect`` counts the ``images`` written and those
         ``resized`` (``letterbox``'s linear resize, where the image is larger
         than the batch shape)."""
         # imported here: worker processes import this module, and never torch
@@ -894,18 +966,9 @@ class Loader:
             images.fill(114)  # letterbox's (114, 114, 114), a scalar fill
             for b, i in enumerate(chunk):
                 im, _, (rh, rw) = self.ds.load_image(int(i))
-                # letterbox's geometry (data/letterbox.py), without its canvas
-                r = min(h / rh, w / rw, 1.0)
-                nw, nh = int(round(rw * r)), int(round(rh * r))
-                dw, dh = (w - nw) / 2, (h - nh) / 2
-                if (rw, rh) != (nw, nh):
-                    im = resize(im, (nw, nh), "linear")
-                    if rec is not None:
-                        rec.counts["resized"] += 1
-                top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
-                dst = images[b, top:top + nh, left:left + nw]
-                for c in range(3):  # BGR -> RGB
-                    dst[..., c] = im[..., 2 - c]
+                r, (dw, dh), resized = write_letterboxed(images[b], im)
+                if resized and rec is not None:
+                    rec.counts["resized"] += 1
                 lab = self.ds.labels[int(i)]
                 n = min(len(lab), self.max_labels)
                 if n:
