@@ -25,7 +25,7 @@ from yolov5_tpu_torch.ops.nms import detections_to_numpy
 from yolov5_tpu_torch.utils import profile as prof
 
 CPU = torch.device("cpu")
-DETECT_SPANS = ["detect", "detect.input", "detect.model", "nms", "nms.fetch"]
+DETECT_SPANS = ["detect", "detect.input", "detect.model", "nms", "nms.select", "nms.fetch"]
 
 
 @pytest.fixture(scope="module")
@@ -56,16 +56,58 @@ def test_detector_spans_under_the_profiler(det, store):
             detections_to_numpy(det(batch, conf_thres=0.001))
     spans = store.spans()
     assert [s.name for s in spans] == DETECT_SPANS * 2
-    first, second = spans[:5], spans[5:]
-    assert [s.parent for s in first] == [None, "detect", "detect", "detect", None]
+    n = len(DETECT_SPANS)
+    first, second = spans[:n], spans[n:]
+    assert [s.parent for s in first] == [None, "detect", "detect", "detect", "nms", None]
     assert [s.parent for s in second] == [s.parent for s in first]
-    assert first[4].start_ns >= first[0].end_ns  # the fetch follows the call
-    assert second[0].start_ns >= first[4].end_ns
+    assert first[-1].start_ns >= first[0].end_ns  # the fetch follows the call
+    assert second[0].start_ns >= first[-1].end_ns
     for s in first:
         assert s.end_ns >= s.start_ns and s.device_ms == s.host_ms  # no events on the CPU
     cpu_events = {e.name() for e in p.profiler.kineto_results.events()
                   if e.device_type() == DeviceType.CPU}
     assert set(DETECT_SPANS) <= cpu_events
+
+
+def _config(name, nc=3):
+    import yaml
+
+    from yolov5_tpu_torch.models.yolo import CONFIG_DIR
+
+    with open(CONFIG_DIR / f"{name}.yaml") as f:
+        return {**yaml.safe_load(f), "nc": nc}
+
+
+@pytest.mark.parametrize("name, imgsz, levels", [("yolov5n", 64, 3), ("yolov5n6", 128, 4)],
+                         ids=["P5", "P6"])
+def test_nms_select_span_counts(monkeypatch, store, name, imgsz, levels):
+    """``nms.select`` nests in ``nms`` with the maps' levels, their rows an
+    image and the candidates handed to K1 (cut to ``max_nms``);
+    ``nms.fetch`` counts the rows returned; without a recorder neither is
+    recorded."""
+    from yolov5_tpu_torch.ops import nms as nms_mod
+
+    det = Detector(None, cfg=_config(name), imgsz=imgsz, device="cpu")
+    batch = np.random.default_rng(1).integers(0, 256, (2, imgsz, imgsz, 3), dtype=np.uint8)
+    widths, greedy = [], nms_mod.greedy_nms
+    monkeypatch.setattr(nms_mod, "greedy_nms",
+                        lambda b, *a: widths.append(b.shape[1]) or greedy(b, *a))
+    with prof.recording() as spans:
+        rows = detections_to_numpy(det(batch, conf_thres=0.001, max_nms=100))
+    by = {s.name: s for s in spans}
+    assert [s.name for s in spans] == DETECT_SPANS
+    outer, sel = by["nms"], by["nms.select"]
+    assert sel.parent == "nms" and outer.start_ns <= sel.start_ns <= sel.end_ns <= outer.end_ns
+    n_rows = sum((imgsz // s) ** 2 * 3 for s in det.stride)
+    assert len(det.stride) == levels and n_rows == (252 if levels == 3 else 1020)
+    assert sel.counts == {"levels": levels, "rows": n_rows, "selected": 100}
+    assert widths == [100]  # K1's input width
+    kept = sum(len(r) for r in rows)
+    assert kept > 0 and by["nms.fetch"].counts == {"kept": kept}
+    # without a recorder: the same outputs, nothing recorded
+    again = detections_to_numpy(det(batch, conf_thres=0.001, max_nms=100))
+    assert store.spans() == [] and len(spans) == len(DETECT_SPANS)
+    assert all(np.array_equal(a, b) for a, b in zip(rows, again))
 
 
 @pytest.fixture(scope="module")
@@ -188,6 +230,7 @@ READERS = [  # (metric, its expected mean over the hand-made store below)
     ("input_ms.detect", (1.0 + 3.0) / 2),
     ("model_ms.detect", (6.0 + 8.0) / 2),
     ("nms_ms.detect", (0.5 + 1.5) / 2),
+    ("select_ms.detect", (0.25 + 0.75) / 2),
     ("enqueue_ms.detect", (2.0 + 4.0) / 2),
     ("forward_ms.val", (20.0 + 30.0) / 2),
     ("nms_ms.val", (4.0 + 6.0) / 2),
@@ -203,6 +246,7 @@ def test_span_readers(monkeypatch, metric, expected):
                   _fake("detect.input", "detect", device=1.0 + 2 * k),
                   _fake("detect.model", "detect", device=6.0 + 2 * k),
                   _fake("nms", "detect", device=0.5 + k),
+                  _fake("nms.select", "nms", device=0.25 + 0.5 * k),
                   _fake("nms.fetch", host=50.0, device=50.0),
                   _fake("val.load", host=100.0),
                   _fake("val.forward", device=20.0 + 10 * k),

@@ -178,57 +178,62 @@ def non_max_suppression_from_maps(maps, anchors, strides, conf_thres=0.25,
         n_total = sum(m.shape[1] * m.shape[2] * m.shape[3] for m in maps)
         k = min(max_nms, n_total * nc if multi_label else n_total)
 
-        parts = []  # per-level (scores, boxes_xyxy, cls_idx, masks)
-        for y, a, s in zip(maps, anchors, strides):
-            _, ny, nx, na, _ = y.shape
-            n_l = ny * nx * na
-            flat_y = y.reshape(bs, n_l, no)  # cell-major (gy, gx, anchor)
-            obj_sig = torch.sigmoid(flat_y[..., 4].float())
+        # the selection, everything before the suppression; its counts come
+        # from shapes alone (``selected``: the candidates handed to K1)
+        with span("nms.select", device=device, levels=len(maps), rows=n_total) as sel:
+            parts = []  # per-level (scores, boxes_xyxy, cls_idx, masks)
+            for y, a, s in zip(maps, anchors, strides):
+                _, ny, nx, na, _ = y.shape
+                n_l = ny * nx * na
+                flat_y = y.reshape(bs, n_l, no)  # cell-major (gy, gx, anchor)
+                obj_sig = torch.sigmoid(flat_y[..., 4].float())
 
-            if multi_label and nc > 1:
-                probs = obj_sig[..., None] * torch.sigmoid(flat_y[..., 5:5 + nc].float())
-                if class_filter is not None:
-                    probs = torch.where(class_filter, probs, 0.0)
-                flat = probs.reshape(bs, n_l * nc)
-                flat = torch.where(flat > conf, flat, 0.0)
-                scores_l, top_idx = _select_k(flat, min(k, n_l * nc))
-                cand_idx = top_idx // nc
-                cls_idx = (top_idx % nc).to(torch.int32)
-            else:
-                # max and argmax in the maps' dtype: exact, and no f32 copy of
-                # the (bs, N, nc) class logits
-                cls_logits = flat_y[..., 5:5 + nc]
-                if class_filter is not None:
-                    cls_logits = torch.where(class_filter, cls_logits, -torch.inf)
-                best_logit, best_cls = cls_logits.max(-1)
-                best = obj_sig * torch.sigmoid(best_logit.float())
-                best = torch.where(best > conf, best, 0.0)
-                scores_l, cand_idx = _select_k(best, min(k, n_l))
-                cls_idx = torch.gather(best_cls.to(torch.int32), 1, cand_idx)
+                if multi_label and nc > 1:
+                    probs = obj_sig[..., None] * torch.sigmoid(flat_y[..., 5:5 + nc].float())
+                    if class_filter is not None:
+                        probs = torch.where(class_filter, probs, 0.0)
+                    flat = probs.reshape(bs, n_l * nc)
+                    flat = torch.where(flat > conf, flat, 0.0)
+                    scores_l, top_idx = _select_k(flat, min(k, n_l * nc))
+                    cand_idx = top_idx // nc
+                    cls_idx = (top_idx % nc).to(torch.int32)
+                else:
+                    # max and argmax in the maps' dtype: exact, and no f32 copy of
+                    # the (bs, N, nc) class logits
+                    cls_logits = flat_y[..., 5:5 + nc]
+                    if class_filter is not None:
+                        cls_logits = torch.where(class_filter, cls_logits, -torch.inf)
+                    best_logit, best_cls = cls_logits.max(-1)
+                    best = obj_sig * torch.sigmoid(best_logit.float())
+                    best = torch.where(best > conf, best, 0.0)
+                    scores_l, cand_idx = _select_k(best, min(k, n_l))
+                    cls_idx = torch.gather(best_cls.to(torch.int32), 1, cand_idx)
 
-            # gather the surviving raw rows, then decode only those
-            rows = _gather_rows(flat_y, cand_idx).float()  # (bs, k_l, no)
-            anc = cand_idx % na
-            cell = cand_idx // na
-            grid = torch.stack([(cell % nx).float(), (cell // nx).float()], -1)
-            a_px = torch.as_tensor(a, dtype=torch.float32, device=device)[anc]
-            xy = (torch.sigmoid(rows[..., 0:2]) * 2.0 - 0.5 + grid) * s
-            wh = (torch.sigmoid(rows[..., 2:4]) * 2.0) ** 2 * a_px
-            boxes_l = xywh2xyxy(torch.cat([xy, wh], -1))
-            masks_l = rows[..., 5 + nc:] if nm else rows[..., :0]
-            parts.append((scores_l, boxes_l, cls_idx, masks_l))
+                # gather the surviving raw rows, then decode only those
+                rows = _gather_rows(flat_y, cand_idx).float()  # (bs, k_l, no)
+                anc = cand_idx % na
+                cell = cand_idx // na
+                grid = torch.stack([(cell % nx).float(), (cell // nx).float()], -1)
+                a_px = torch.as_tensor(a, dtype=torch.float32, device=device)[anc]
+                xy = (torch.sigmoid(rows[..., 0:2]) * 2.0 - 0.5 + grid) * s
+                wh = (torch.sigmoid(rows[..., 2:4]) * 2.0) ** 2 * a_px
+                boxes_l = xywh2xyxy(torch.cat([xy, wh], -1))
+                masks_l = rows[..., 5 + nc:] if nm else rows[..., :0]
+                parts.append((scores_l, boxes_l, cls_idx, masks_l))
 
-        top_scores, top_boxes, cls_idx, top_masks = (
-            torch.cat([p[i] for p in parts], 1) for i in range(4))
-        if len(parts) > 1:
-            # one global sort: the suppression walks candidates in score order.
-            # Past the cap it is exact, as every global top-k candidate is inside
-            # its level's top-k_l. (yolov5_tpu sorts only past the cap, so under
-            # it its walk goes level by level.)
-            top_scores, order = _select_k(top_scores, min(k, top_scores.shape[1]))
-            top_boxes = _gather_rows(top_boxes, order)
-            cls_idx = torch.gather(cls_idx, 1, order)
-            top_masks = _gather_rows(top_masks, order) if nm else top_masks[:, :k]
+            top_scores, top_boxes, cls_idx, top_masks = (
+                torch.cat([p[i] for p in parts], 1) for i in range(4))
+            if len(parts) > 1:
+                # one global sort: the suppression walks candidates in score order.
+                # Past the cap it is exact, as every global top-k candidate is inside
+                # its level's top-k_l. (yolov5_tpu sorts only past the cap, so under
+                # it its walk goes level by level.)
+                top_scores, order = _select_k(top_scores, min(k, top_scores.shape[1]))
+                top_boxes = _gather_rows(top_boxes, order)
+                cls_idx = torch.gather(cls_idx, 1, order)
+                top_masks = _gather_rows(top_masks, order) if nm else top_masks[:, :k]
+            if sel is not None:
+                sel.counts["selected"] = top_scores.shape[1]
 
         return _suppress_and_pack(top_scores, top_boxes, cls_idx, top_masks,
                                   iou_thres=iou_thres, agnostic=agnostic,
@@ -239,9 +244,11 @@ def non_max_suppression_from_maps(maps, anchors, strides, conf_thres=0.25,
 def detections_to_numpy(dets: Detections):
     """Padded `Detections` -> per-image list of (n_i, 6 + nm) float arrays
     [x1, y1, x2, y2, conf, cls, *coeffs]."""
-    with span("nms.fetch"):
+    with span("nms.fetch") as fetch:
         boxes, scores, classes, masks = (t.detach().float().cpu().numpy() for t in dets[:4])
         valid = dets.valid.cpu().numpy()
+        if fetch is not None:
+            fetch.counts["kept"] = int(valid.sum())
         out = []
         for b in range(boxes.shape[0]):
             v = valid[b]
