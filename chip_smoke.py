@@ -25,10 +25,11 @@ Phases, one line each:
      candidate chunk edges, max_det and padding mid-chunk, identical boxes,
      a threshold tie across a chunk, thresholds < 0);
   5. the slice: yolov5s at 640 px in bf16 with seeded random weights,
-     letterboxed requests, Detector.__call__ at b32, boxes scaled back; both
-     kernels' launch counters must rise; the raw maps agree with the plain
-     stem's, K1's detections on the same maps equal its plain version's,
-     and against the whole path through both plain versions the counts are
+     letterboxed requests, Detector.__call__ at b32, boxes scaled back; the
+     kernels' launch counters must rise, K3's (the folded convs' epilogue)
+     by 59; the raw maps agree with the plain stem's, K1's detections on the
+     same maps equal its plain version's, and against the whole path
+     through every plain version the counts are
      equal and, at the serving defaults, the detections match as sets
      (same class, box within 1 px): K2 sums in another order than the plain
      f32 convolution, so bf16 scores may differ in the last place;
@@ -36,7 +37,9 @@ Phases, one line each:
      path's shapes beside its bound (computed here from the shapes and, for
      K1, from the IoUs greedy needs on the captured inputs), its plain
      version, its launches per call and, for K2, cuDNN's bf16 conv + SiLU
-     as a yardstick; K2 also in f32;
+     as a yardstick; K2 also in f32; K3 at the slice's largest conv outputs
+     (SiLU, SiLU + residual, a Detect level), within one bf16 ulp of its
+     plain version, beside PyTorch's bias add_ + F.silu (+ add) it replaces;
   7. val data: 128 BMP images (4 shapes, long side 640) of filled
      rectangles of 3 classes, YOLO labels and a data YAML, in a temporary
      directory;
@@ -243,8 +246,9 @@ Phases, one line each:
      it is not installed, one line saying so. ``python -m
      tests.torch_chip_rehearsal`` runs this phase on the CPU at 128 px. K1 and K2 launches of (b) and
      (c) count into the kernels line.
-Then one JSON line with each kernel's launches (in all, and per main-path
-call), error, times, bound and yardstick (and under "zoo" phase 19's, under
+K3's launches are counted in each phase after 5 and must rise in each
+that launches K2. Then one JSON line with each kernel's launches (in all,
+and per main-path call), error, times, bound and yardstick (and under "zoo" phase 19's, under
 "export" phase 20's numbers and K1's launches by path, under "bench" phase
 21's readings at the bench's shapes; and at the top level under "bench" the
 bench's line and the benchmarks rows, under "ranks" phase 22's readings,
@@ -275,6 +279,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 BATCH = 32
 IMGSZ = 640
+# K3's launches in one yolov5s forward: 56 folded Convs but the stem, 3 Detect levels
+YOLOV5S_K3_LAUNCHES = 59
 # (h, w) of the source images: all need padding only at 640, no resize
 SOURCE_SHAPES = ((480, 640), (640, 480), (640, 640), (640, 320))
 VAL_IMAGES = 128
@@ -350,33 +356,62 @@ def cuda_ms(fn, iters, warmup=2):
 
 
 @contextlib.contextmanager
-def routed(stem=None, nms=None):
-    """Route the model's stem and the NMS tail to other functions for a while
-    (the plain versions, to compare the slice with them)."""
+def routed(stem=None, nms=None, epilogue=None):
+    """Route the model's stem, its convs' epilogue and the NMS tail to other
+    functions for a while (the plain versions, to compare the slice with
+    them)."""
     import yolov5_tpu_torch.models.layers as layers_mod
     import yolov5_tpu_torch.ops.nms as nms_mod
 
-    saved = layers_mod.stem_conv, nms_mod.greedy_nms
+    saved = layers_mod.stem_conv, nms_mod.greedy_nms, layers_mod.conv_epilogue
     layers_mod.stem_conv = stem or saved[0]
     nms_mod.greedy_nms = nms or saved[1]
+    layers_mod.conv_epilogue = epilogue or saved[2]
     try:
         yield
     finally:
-        layers_mod.stem_conv, nms_mod.greedy_nms = saved
+        layers_mod.stem_conv, nms_mod.greedy_nms, layers_mod.conv_epilogue = saved
+
+
+def plain_twin():
+    """The path through every kernel's plain version (K1, K2 and K3)."""
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue_plain
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv_plain
+
+    return routed(stem_conv_plain, greedy_nms_plain, conv_epilogue_plain)
 
 
 @contextlib.contextmanager
 def uncounted():
     """Leave the kernels' launch counters as they were: a run made only to
     compare with a plain version is not a run of the path."""
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
     from yolov5_tpu_torch.ops.stem import stem_conv
 
-    saved = stem_conv.launches, greedy_nms.launches
+    saved = stem_conv.launches, greedy_nms.launches, conv_epilogue.launches
     try:
         yield
     finally:
-        stem_conv.launches, greedy_nms.launches = saved
+        stem_conv.launches, greedy_nms.launches, conv_epilogue.launches = saved
+
+
+def k3_launches(name, fn, *args, required=False, **kw):
+    """fn(*args, **kw) with K3's launches over it added to K3_LAUNCHES[name];
+    ``required``: the phase runs a folded model on the card (K2 launches in
+    it), so K3 must launch too."""
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue
+
+    before = conv_epilogue.launches
+    out = fn(*args, **kw)
+    K3_LAUNCHES[name] = conv_epilogue.launches - before
+    if required and K3_LAUNCHES[name] < 1:
+        raise AssertionError(f"{name}: K3 (conv_epilogue) did not launch")
+    return out
+
+
+K3_LAUNCHES = {}  # phase -> K3's launches in it
 
 
 def bf16_ulp(x):
@@ -589,6 +624,7 @@ def phase_slice(dev):
     from yolov5_tpu_torch.infer import Detector
     from yolov5_tpu_torch.ops.boxes import scale_boxes
     from yolov5_tpu_torch.ops.nms import detections_to_numpy, non_max_suppression_from_maps
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
     from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
 
@@ -602,13 +638,17 @@ def phase_slice(dev):
     det.warmup(batch_size=2)
 
     # the counted run of the main path
-    stem_conv.launches = greedy_nms.launches = 0
+    stem_conv.launches = greedy_nms.launches = conv_epilogue.launches = 0
     dets = det(batch, **kw)
     torch.cuda.synchronize()
-    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
+    launches = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches,
+                "conv_epilogue": conv_epilogue.launches}
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the slice did not launch {name}")
+    if launches["conv_epilogue"] != YOLOV5S_K3_LAUNCHES:
+        raise AssertionError(f"the slice launched K3 {launches['conv_epilogue']} times, not "
+                             f"{YOLOV5S_K3_LAUNCHES} (56 folded Convs, 3 Detect levels)")
 
     counts = dets.counts.tolist()
     if min(counts) < 1:
@@ -638,13 +678,14 @@ def phase_slice(dev):
     for f in d_kern._fields:
         if not torch.equal(getattr(d_kern, f), getattr(d_plain, f)):
             raise AssertionError(f"detections on the same maps, K1 vs plain: {f} differ")
-    # the whole path through both plain versions. K1 is exact, but the plain
+    # the whole path through every plain version. K1 is exact, but the plain
     # stem is cuDNN's sequential f32 sum and K2 sums on the tensor cores in
-    # another order, so a few bf16 stem outputs differ by one ulp (phase 3)
-    # and the bf16 network carries that to the scores: detections are
-    # compared as sets, at conf 0.01 (many near-tied scores from random
-    # weights, reported) and at the serving defaults (required)
-    with routed(stem=stem_conv_plain, nms=greedy_nms_plain):
+    # another order, so a few bf16 stem outputs differ by one ulp (phase 3),
+    # as K3's __expf may against F.silu (phase 6), and the bf16 network
+    # carries that to the scores: detections are compared as sets, at conf
+    # 0.01 (many near-tied scores from random weights, reported) and at the
+    # serving defaults (required)
+    with plain_twin():
         d_twin = det(batch, **kw)
         d_twin_def = det(batch)
     d_def = det(batch)
@@ -695,6 +736,7 @@ def phase_times(dev, det, batch, launches, smi):
     import torch
     import torch.nn.functional as F
 
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue
     from yolov5_tpu_torch.ops.nms import non_max_suppression_from_maps
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
     from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
@@ -748,10 +790,72 @@ def phase_times(dev, det, batch, launches, smi):
           f"{launches['stem_conv']} | {smi}")
     if not k2 < k2_cudnn_bf16:
         raise AssertionError(f"K2 {k2} ms is not faster than cuDNN bf16 {k2_cudnn_bf16} ms")
+
+    # K3 on the slice's own largest conv outputs of one forward: with SiLU, with
+    # SiLU and a Bottleneck's residual, and a Detect level's identity
+    largest = {}
+
+    def capture_epilogue(y, b, act, residual=None):
+        key = (act, residual is not None)
+        if y.numel() > largest.get(key, (0,))[0]:
+            largest[key] = (y.numel(), y.clone(), b,
+                            None if residual is None else residual.clone())
+        return conv_epilogue(y, b, act, residual)
+
+    with routed(epilogue=capture_epilogue), uncounted():
+        det.forward_maps(images)
+    k3_cases = []
+    with uncounted():
+        for (act, _), (_, y, b, r) in sorted(largest.items(), key=lambda kv: -kv[1][0]):
+            k3_cases.append(epilogue_case(y, b, act, r))
+    for c in k3_cases:
+        print(f"K3 {c['shape']} {c['act']}{' + residual' if c['residual'] else ''}: "
+              f"{c['ms']:.4f} ms; bound {c['bound_ms']:.4f} ms (bytes), "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of it; plain {c['plain_ms']:.3f} ms; "
+              f"PyTorch's {c['replaced']} it replaces "
+              f"{c['library_ms']:.3f} ms; max err {c['max_abs_err']:.3g} (within 1 bf16 ulp of "
+              f"plain); launches per call {launches['conv_epilogue']} | {smi}")
+    head = next(c for c in k3_cases if c["act"] == "silu" and not c["residual"])
     return {"greedy_nms": dict(ms=k1, plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
                                library_ms=None),
             "stem_conv": dict(ms=k2, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
-                              library_ms=k2_cudnn_bf16)}
+                              library_ms=k2_cudnn_bf16),
+            "conv_epilogue": dict({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "library_ms")},
+                                  bound_by="bytes", cases=k3_cases,
+                                  max_abs_err=max(c["max_abs_err"] for c in k3_cases))}
+
+
+def epilogue_case(y, b, act, r):
+    """K3 on a captured conv output y (bias b, residual r or None), held
+    within one bf16 ulp of its plain version; its time, its plain version's,
+    that of PyTorch's ops it replaces (``_convolution``'s broadcast bias
+    ``add_``, ``F.silu``, the residual add) and its bytes bound (y read and
+    written, r read, at the memory rate)."""
+    import torch.nn.functional as F
+
+    from yolov5_tpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
+
+    ref = conv_epilogue_plain(y, b, act, r)
+    got = conv_epilogue(y.clone(), b, act, r)
+    diff = (got.float() - ref.float()).abs()
+    if not (diff <= bf16_ulp(ref)).all():
+        raise AssertionError(f"K3 {tuple(y.shape)} {act}: {int((diff > bf16_ulp(ref)).sum())} "
+                             "outputs more than one bf16 ulp from plain")
+    yt, bias = y.clone(), b.view(1, -1, 1, 1)
+
+    def library():
+        z = yt.add_(bias)
+        z = F.silu(z) if act == "silu" else z
+        return z if r is None else r + z
+
+    nbytes = (2 if r is None else 3) * y.numel() * y.element_size()
+    replaced = " + ".join(["add_"] + ["F.silu"] * (act == "silu") + ["add"] * (r is not None))
+    return {"shape": list(y.shape), "act": act, "residual": r is not None, "replaced": replaced,
+            "ms": cuda_ms(lambda: conv_epilogue(yt, b, act, r), iters=50),
+            "plain_ms": cuda_ms(lambda: conv_epilogue_plain(y, b, act, r), iters=10),
+            "library_ms": cuda_ms(library, iters=50),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "max_abs_err": diff.max().item()}
 
 
 def stem_kernel_call(x, w, b):
@@ -890,7 +994,7 @@ def phase_val(dev, data, smi):
 
     from yolov5_tpu_torch.eval import evaluator
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
-    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv
 
     torch.backends.cudnn.allow_tf32 = False  # the plain stem is an f32 reference
     kw = dict(data=str(data), weights=random_weights("yolov5s", 0), cfg="yolov5s",
@@ -915,7 +1019,7 @@ def phase_val(dev, data, smi):
     a, dets_a = kernel_run("a")
     with captured_detections() as dets_b, routed(nms=counted_plain), uncounted():
         b = evaluator.run(**kw)
-    with captured_detections() as dets_p, routed(stem_conv_plain, greedy_nms_plain):
+    with captured_detections() as dets_p, plain_twin():
         p = evaluator.run(**kw)
     plain = match_detections([r for batch in dets_a for r in batch],
                              [r for batch in dets_p for r in batch])
@@ -971,7 +1075,7 @@ def phase_val(dev, data, smi):
             _, dets_k = kernel_run("e, serving defaults", augment=True, **extra)
         else:
             dets_k = dets_e
-        with captured_detections() as dets_p, routed(stem_conv_plain, greedy_nms_plain):
+        with captured_detections() as dets_p, plain_twin():
             evaluator.run(**kw, augment=True, **extra)
         rows_k = [r for batch in dets_k for r in batch]
         rows_p = [r for batch in dets_p for r in batch]
@@ -1518,8 +1622,8 @@ def phase_detect(dev, root, smi):
     from yolov5_tpu_torch.data.letterbox import scale_boxes_np
     from yolov5_tpu_torch.data.sources import LoadImages
     from yolov5_tpu_torch.ops.nms import detections_to_numpy
-    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
-    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
 
     torch_tf32_off()
     paths, im0s, batch = smoke_sources(root)
@@ -1575,7 +1679,7 @@ def phase_detect(dev, root, smi):
             if half and not plain:
                 runs.append(rows)
                 continue
-            with (routed(stem_conv_plain, greedy_nms_plain) if plain
+            with (plain_twin() if plain
                   else contextlib.nullcontext()), uncounted(), \
                     contextlib.redirect_stdout(io.StringIO()):
                 res, _ = infer.run(name=f"detect_{half}_{plain}", save_img=False,
@@ -1746,7 +1850,7 @@ def phase_segment(dev, root, smi):
     from yolov5_tpu_torch.ops.masks import masks2segments
     from yolov5_tpu_torch.ops.nms import non_max_suppression
     from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
-    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.ops.stem import stem_conv
 
     torch_tf32_off()
     paths, _, batch = smoke_sources(root)
@@ -1767,7 +1871,7 @@ def phase_segment(dev, root, smi):
     n_txt = len(list((save_dir / "labels").glob("*.txt")))
     if n_dets < len(paths) or n_txt != sum(len(r) > 0 for _, r, _ in results):
         raise AssertionError(f"segment: {n_dets} detections, {n_txt} polygon txts")
-    with routed(stem_conv_plain, greedy_nms_plain), uncounted():
+    with plain_twin(), uncounted():
         twin, _ = infer_segment.run(name="segment_plain", save_img=False, **kw)
     # where a predict's time goes: the run without writing anything, and the
     # polygons of all its masks
@@ -2084,7 +2188,7 @@ def phase_segment_val(dev, data, run_dir, smi):
             res_a = evaluate_segment(seg.forward, loader, dev, seg.nc)
         with routed(nms=greedy_nms_plain), captured_seg_batches() as k1p:
             res_k1p = evaluate_segment(seg.forward, loader, dev, seg.nc)
-        with routed(stem_conv_plain, greedy_nms_plain), captured_seg_batches() as b:
+        with plain_twin(), captured_seg_batches() as b:
             res_b = evaluate_segment(seg.forward, loader, dev, seg.nc)
     k1_same = (all(np.array_equal(x, y) for ba, bb in zip(a, k1p)
                    for x, y in zip(ba["rows"], bb["rows"]))
@@ -2616,8 +2720,8 @@ def phase_zoo_detect(dev, root, smi):
     from yolov5_tpu_torch.data.imageio import imread
     from yolov5_tpu_torch.data.letterbox import letterbox
     from yolov5_tpu_torch.ops.nms import detections_to_numpy
-    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
-    from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
+    from yolov5_tpu_torch.ops.nms_kernel import greedy_nms
+    from yolov5_tpu_torch.ops.stem import stem_conv
 
     torch_tf32_off()
     im0s = [imread(p) for p in sorted((Path(root) / "images" / "val").glob("*.bmp"))[:ZOO_BATCH]]
@@ -2638,7 +2742,7 @@ def phase_zoo_detect(dev, root, smi):
         got = {"stem_conv": stem_conv.launches, "greedy_nms": greedy_nms.launches}
         for k in launches:
             launches[k] += got[k]
-        with routed(stem_conv_plain, greedy_nms_plain), uncounted():
+        with plain_twin(), uncounted():
             twin = call(batch)
         a, b = detections_to_numpy(dets), detections_to_numpy(twin)
         same, hit, total = _zoo_match(a, b)
@@ -4210,45 +4314,56 @@ def main(argv=None):
     stem_err = phase_stem(dev)
     nms_err = phase_nms(dev)
     det, batch, launches = phase_slice(dev)
+    K3_LAUNCHES["slice"] = launches["conv_epilogue"]
     times = phase_times(dev, det, batch, launches, smi)
+    k3 = k3_launches  # K3's launches by phase; required where the phase's K2 launches are
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
         data = phase_val_data(root)
-        a, val_launches = phase_val(dev, data, smi)
-        phase_val_times(dev, data, a, smi)
+        a, val_launches = k3("val", phase_val, dev, data, smi, required=True)
+        k3("val_times", phase_val_times, dev, data, a, smi)
         train_data = phase_train_data(root)
-        train_launches, trained = phase_train(dev, train_data, root, smi)
-        phase12_ms = phase_train_times(dev, train_data, smi)
+        train_launches, trained = k3("train", phase_train, dev, train_data, root, smi,
+                                     required=True)
+        phase12_ms = k3("train_times", phase_train_times, dev, train_data, smi)
         host_data = phase_train_host_data(root)
-        host_launches = phase_train_host(dev, host_data, root, smi)
-        phase_train_host_times(dev, host_data, smi)
-        weights, detect_launches = phase_detect(dev, root, smi)
-        serve_launches = phase_serve(dev, root, weights, smi)
-        segment_launches = phase_segment(dev, root, smi)
+        host_launches = k3("train_host", phase_train_host, dev, host_data, root, smi,
+                           required=True)
+        k3("train_host_times", phase_train_host_times, dev, host_data, smi)
+        weights, detect_launches = k3("detect", phase_detect, dev, root, smi, required=True)
+        serve_launches = k3("serve", phase_serve, dev, root, weights, smi, required=True)
+        segment_launches = k3("segment", phase_segment, dev, root, smi, required=True)
         seg_data = phase_seg_data(root)
-        seg_train_launches, seg_run = phase_segment_train(dev, seg_data, root, smi)
-        seg_val_launches = phase_segment_val(dev, seg_data, seg_run, smi)
-        phase_segment_times(dev, seg_data, smi)
+        seg_train_launches, seg_run = k3("segment_train", phase_segment_train, dev, seg_data,
+                                         root, smi, required=True)
+        seg_val_launches = k3("segment_val", phase_segment_val, dev, seg_data, seg_run, smi,
+                              required=True)
+        k3("segment_times", phase_segment_times, dev, seg_data, smi)
         cls_data = phase_cls_data(root)
-        cls_train_launches, cls_run = phase_classify_train(dev, cls_data, root, smi)
-        cls_val_launches, _ = phase_classify_val(dev, cls_data, cls_run, smi)
-        cls_predict_launches = phase_classify_predict(dev, cls_data, cls_run, root, smi)
-        phase_classify_times(dev, smi)
-        zoo_launches, zoo_times = phase_zoo(dev, root, train_data, smi)
-        export_launches, export_numbers = phase_export(dev, root, data, weights, trained,
-                                                       smi)
-        bench_launches, bench_numbers = phase_bench(dev, root, data, weights, trained, smi,
-                                                    stem_ms=times["stem_conv"]["ms"])
-        ranks_launches, ranks_numbers = phase_ranks(dev, train_data, seg_data, cls_data, root,
-                                                    smi, phase12_ms)
-        native_tf_launches, native_tf_numbers = phase_native_tf(dev, root, data,
-                                                                lambda: trained, smi)
+        cls_train_launches, cls_run = k3("classify_train", phase_classify_train, dev, cls_data,
+                                         root, smi, required=True)
+        cls_val_launches, _ = k3("classify_val", phase_classify_val, dev, cls_data, cls_run,
+                                 smi, required=True)
+        cls_predict_launches = k3("classify_predict", phase_classify_predict, dev, cls_data,
+                                  cls_run, root, smi, required=True)
+        k3("classify_times", phase_classify_times, dev, smi)
+        zoo_launches, zoo_times = k3("zoo", phase_zoo, dev, root, train_data, smi,
+                                     required=True)
+        export_launches, export_numbers = k3("export", phase_export, dev, root, data, weights,
+                                             trained, smi)
+        bench_launches, bench_numbers = k3("bench", phase_bench, dev, root, data, weights,
+                                           trained, smi, stem_ms=times["stem_conv"]["ms"],
+                                           required=True)
+        ranks_launches, ranks_numbers = k3("ranks", phase_ranks, dev, train_data, seg_data,
+                                           cls_data, root, smi, phase12_ms)
+        native_tf_launches, native_tf_numbers = k3("native_tf", phase_native_tf, dev, root,
+                                                   data, lambda: trained, smi)
     per_call = launches  # one Detector call of the slice
     launches = {k: n + val_launches[k] + train_launches[k] + host_launches[k]
                 + detect_launches[k] + serve_launches[k] + segment_launches[k]
                 + seg_train_launches[k] + seg_val_launches[k] + cls_train_launches[k]
                 + cls_val_launches[k] + cls_predict_launches[k] + zoo_launches[k]
                 + export_launches[k] + bench_launches[k] + ranks_launches[k]
-                + native_tf_launches[k] for k, n in launches.items()}
+                + native_tf_launches[k] for k, n in launches.items() if k != "conv_epilogue"}
     kernels = [
         {"name": "greedy_nms", "route": "cuda", "source": "yolov5_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "yolov5_tpu/ops/nms_pallas.py:106", "launches": launches["greedy_nms"],
@@ -4262,6 +4377,11 @@ def main(argv=None):
          "launches_per_call": per_call["stem_conv"], "max_abs_err": stem_err,
          **times["stem_conv"], "zoo": zoo_times["stem_conv"],
          "bench": bench_numbers.pop("stem_conv")},
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "yolov5_tpu_torch/csrc/conv_epilogue.cu",
+         "replaces": None, "launches": sum(K3_LAUNCHES.values()),
+         "launches_by_phase": K3_LAUNCHES, "launches_per_call": per_call["conv_epilogue"],
+         **times["conv_epilogue"]},
     ]
     print(json.dumps({"kernels": kernels, "bench": bench_numbers, "ranks": ranks_numbers,
                       "native_tf": native_tf_numbers}, default=str))

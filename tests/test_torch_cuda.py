@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from yolov5_tpu_torch.data.imageio import imwrite
+from yolov5_tpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
 from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
 
@@ -686,3 +687,137 @@ def test_bench_on_the_card(dev, capsys):
     assert ex["device"]["count"] == torch.cuda.device_count()
     assert (ex["mfu_pct"] is not None) == ("H100" in ex["device"]["name"])
     assert ex["kernels"]["greedy_nms"] > 0 and ex["kernels"]["stem_conv"] > 0
+
+
+def _epilogue_inputs(dev, shape, dtype, fmt, seed):
+    """A bias-free conv output, its bias and a residual, each U(-4, 4)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(size):
+        return ((torch.rand(size, generator=gen, device=dev) - 0.5) * 8).to(dtype)
+
+    return (draw(shape).contiguous(memory_format=fmt), draw((shape[1],)),
+            draw(shape).contiguous(memory_format=fmt))
+
+
+def _assert_epilogue_equal(got, ref):
+    """bf16 within one ulp of the plain version, f32 within 1e-6 relative."""
+    assert got.dtype == ref.dtype
+    if got.dtype == torch.bfloat16:
+        got, ref = got.float(), ref.float()
+        assert ((got - ref).abs() <= _bf16_ulp(ref)).all()
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", [torch.channels_last, torch.contiguous_format])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", ["silu", "identity"])
+@pytest.mark.parametrize("shape", [(2, 32, 8, 8), (3, 255, 5, 7), (1, 351, 20, 20),
+                                   (5, 1280, 3, 3), (3, 255, 1, 1)])
+def test_conv_epilogue_kernel_equals_plain(dev, shape, act, residual, fmt, dtype):
+    """K3 in place against its plain version: every C of the zoo's heads and
+    trunks (255 and 351 split a 16-byte vector across pixels), an odd batch
+    and ragged totals (3·255·35 is not a multiple of 8), NHWC and NCHW."""
+    y, b, r = _epilogue_inputs(dev, shape, dtype, fmt, sum(shape))
+    ref = conv_epilogue_plain(y, b, act, r if residual else None)
+    n = conv_epilogue.launches
+    got = conv_epilogue(y, b, act, r if residual else None)
+    assert conv_epilogue.launches == n + 1
+    assert got.data_ptr() == y.data_ptr() and got.is_contiguous(memory_format=fmt)
+    _assert_epilogue_equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv_epilogue_kernel_unaligned(dev, residual, dtype):
+    """A y (and residual) that starts one element past a 16-byte boundary
+    takes the scalar path for all of it."""
+    shape = (2, 255, 4, 6)
+    y, b, r = _epilogue_inputs(dev, shape, dtype, torch.contiguous_format, 7)
+    n = y.numel()
+    yb, rb = torch.empty(n + 1, dtype=dtype, device=dev), torch.empty(n + 1, dtype=dtype, device=dev)
+    yu, ru = yb[1:].view(shape), rb[1:].view(shape)
+    yu.copy_(y)
+    ru.copy_(r)
+    assert yu.data_ptr() % 16 and yu.is_contiguous()
+    ref = conv_epilogue_plain(y, b, "silu", r if residual else None)
+    _assert_epilogue_equal(conv_epilogue(yu, b, "silu", ru if residual else None), ref)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv_epilogue_kernel_at_the_p6_cell(dev, residual):
+    """The largest conv output of yolov5x6 at b32 x 1280 px (the second
+    layer, 160 channels at 320 x 320, 524 M elements) in bf16 NHWC."""
+    y, b, r = _epilogue_inputs(dev, (32, 160, 320, 320), torch.bfloat16, torch.channels_last, 11)
+    ref = conv_epilogue_plain(y, b, "silu", r if residual else None)
+    _assert_epilogue_equal(conv_epilogue(y, b, "silu", r if residual else None), ref)
+
+
+def test_conv_epilogue_rejects_what_it_cannot_take(dev):
+    y = torch.zeros((1, 16, 4, 4), device=dev)
+    b = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_epilogue(y.half(), b.half(), "silu")
+    with pytest.raises(ValueError, match="act in"):
+        conv_epilogue(y, b, "leaky_relu")
+    with pytest.raises(ValueError, match="b \\(C,\\)"):
+        conv_epilogue(y, torch.zeros(8, device=dev), "silu")
+    with pytest.raises(ValueError, match="channels_last or contiguous"):
+        conv_epilogue(y.transpose(2, 3), b, "silu")
+    with pytest.raises(ValueError, match="residual"):
+        conv_epilogue(y, b, "silu", y.contiguous(memory_format=torch.channels_last)[:, :, :2])
+
+
+def test_detector_epilogue_equals_plain(dev, monkeypatch):
+    """A yolov5n Detector in bf16 on the card: K3 launches 59 times a
+    forward (56 Convs, 3 Detect levels), and the detections equal those with
+    K3's plain version in its place, counted as sets: equal counts an image
+    and >= 99% of the detections matched (same class, box within 1 px)."""
+    from chip_smoke import match_detections
+
+    import yolov5_tpu_torch.models.layers as layers_mod
+    from yolov5_tpu_torch.infer import Detector
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+    from yolov5_tpu_torch.ops.nms import detections_to_numpy
+
+    sd = DetectionModel("yolov5n").state_dict()
+    gen = torch.Generator().manual_seed(0)
+    for k, v in sd.items():  # random BN statistics, Detect biases near 0
+        if k.endswith("bn.weight") or k.endswith("running_var"):
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif k.endswith("running_mean"):
+            v.normal_(0.0, 0.2, generator=gen)
+        elif k.startswith("model.24.m.") and k.endswith("bias"):
+            v.normal_(-1.0, 0.5, generator=gen)
+    det = Detector(sd, cfg="yolov5n", imgsz=320, half=True, device=dev)
+    ims = np.random.default_rng(0).integers(0, 256, (4, 320, 320, 3), dtype=np.uint8)
+    n = conv_epilogue.launches
+    got = detections_to_numpy(det(ims, conf_thres=0.01))
+    assert conv_epilogue.launches == n + 59
+    monkeypatch.setattr(layers_mod, "conv_epilogue", conv_epilogue_plain)
+    ref = detections_to_numpy(det(ims, conf_thres=0.01))
+    assert conv_epilogue.launches == n + 59
+    assert sum(len(r) for r in got) > 0
+    assert [len(r) for r in got] == [len(r) for r in ref]
+    hit, total, _, _ = match_detections(got, ref)
+    assert hit >= 0.99 * total, (hit, total)
+
+
+def test_unfused_model_takes_k3_only_in_detect(dev):
+    """An unfused yolov5n (BN apart, as training validates it) in eval under
+    inference_mode on the card: its Convs keep conv + BN + SiLU, and only
+    the 3 Detect convs, which have a bias either way, end in K3; in f32 the
+    maps equal those of the conv with its bias."""
+    from yolov5_tpu_torch.models.yolo import DetectionModel
+
+    model = DetectionModel("yolov5n").to(dev).eval()
+    x = torch.rand((2, 3, 128, 128), device=dev).contiguous(memory_format=torch.channels_last)
+    n = conv_epilogue.launches
+    with torch.inference_mode():
+        got = model(x)
+    assert conv_epilogue.launches == n + 3
+    ref = model(x)  # gradients wanted: conv with bias throughout
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r.detach(), atol=1e-5, rtol=1e-5)

@@ -15,6 +15,7 @@ from yolov5_tpu.ops.nms import _greedy_nms_tiled
 from yolov5_tpu.ops.nms_pallas import greedy_nms_pallas
 from yolov5_tpu.ops.stem_pallas import stem_conv_mxuT
 from yolov5_tpu_torch.models import layers as L
+from yolov5_tpu_torch.ops.epilogue import conv_epilogue
 from yolov5_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 from yolov5_tpu_torch.ops.stem import stem_conv, stem_conv_plain
 
@@ -127,3 +128,6 @@ def test_wrappers_raise_off_cpu_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         stem_conv(x, torch.empty((32, 3, 6, 6), device="meta"),
                   torch.empty((32,), device="meta"))
+    y = torch.empty((1, 16, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        conv_epilogue(y, torch.empty((16,), device="meta"), "silu")

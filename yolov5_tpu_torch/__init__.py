@@ -9,7 +9,7 @@ original, and the YAML model configs are read by path from
 Subpackages
 -----------
 - ``ops``    — box math, NMS (greedy suppression kernel K1), stem conv (K2),
-  mask ops and the outer-border follower
+  the folded convs' epilogue (K3), mask ops and the outer-border follower
 - ``models`` — canonical yolov5 layers, the Segment head, YAML graph, weight
   conversion
 - ``native`` — the JPEG batch decoder (libjpeg, OpenMP; built by g++ at

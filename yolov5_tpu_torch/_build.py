@@ -25,9 +25,11 @@ BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
+    # y, b, residual (or None), n, C, inner, act, dtype, device, stream
+    "yolo_conv_epilogue": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     # boxes, scores, keep, bs, K, thres, max_det, stream
     "yolo_greedy_nms": (_P, _P, _P, _I, _I, _F, _I, _P),
     # x, w_hi, w_lo (or None), b, y, B, H, W, c2, dtype, stream
@@ -99,6 +101,8 @@ def build() -> Path:
 def load():
     """The loaded kernel library, built on first use."""
     global _lib
+    if _lib is not None:  # the wrappers call this on every launch
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolov5_tpu_torch.ops.epilogue import ACT_CODES, conv_epilogue
 from yolov5_tpu_torch.ops.stem import STEM_WIDTHS, stem_conv
 from yolov5_tpu_torch.parallel.distributed import all_reduce_sum_grad, world
 
@@ -107,12 +108,38 @@ def apply_bn(x, bn, training: bool):
     return batch_norm_train(x, bn) if training else bn(x)
 
 
+def on_card(x) -> bool:
+    """Where the epilogue (K3) pays: on the CPU its plain version costs more
+    than the conv with its bias and the activation, which a CPU forward keeps."""
+    return x.is_cuda
+
+
+def eager_inference(x, conv: nn.Conv2d) -> bool:
+    """Whether the in-place epilogue (K3) may finish a conv on x: x is on the
+    card, autograd needs nothing of it, and no graph is being traced
+    (``torch.export`` keeps the conv with its bias)."""
+    if not on_card(x) or torch.compiler.is_compiling():
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or conv.weight.requires_grad or conv.bias.requires_grad)
+
+
+def conv_with_epilogue(x, conv: nn.Conv2d, act: str, residual=None):
+    """``conv`` (which has a bias) on x without its bias, then bias, ``act``
+    and the residual in one pass (``ops.epilogue.conv_epilogue``)."""
+    y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return conv_epilogue(y, conv.bias, act, residual)
+
+
 class Conv(nn.Module):
     """Conv2d + BatchNorm + activation; ``fused`` means BN is folded into the
     conv's weight and bias.
 
     The fused 6x6/s2/p2 SiLU stem on 3 channels goes to kernel K2
-    (``ops.stem.stem_conv``), which runs its CUDA kernel on a CUDA tensor."""
+    (``ops.stem.stem_conv``), which runs its CUDA kernel on a CUDA tensor.
+    Any other fused Conv with SiLU or no activation ends in kernel K3
+    (``conv_with_epilogue``) on the card wherever autograd needs no gradient;
+    there a ``residual`` is added in the same pass."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act="silu", fused=False):
         super().__init__()
@@ -122,15 +149,20 @@ class Conv(nn.Module):
         self.act = ACTIVATIONS[act]
         self.stem = (fused and c1 == 3 and c2 in STEM_WIDTHS and k == 6 and s == 2
                      and pad == 2 and g == 1 and d == 1 and act == "silu")
+        self.epilogue = act if fused and act in ACT_CODES and not self.stem else None
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         if self.stem:
             return stem_conv(x, self.conv.weight, self.conv.bias)
-        return self.act(apply_bn(self.conv(x), self.bn, self.training))
+        if self.epilogue and eager_inference(x, self.conv):
+            return conv_with_epilogue(x, self.conv, self.epilogue, residual)
+        y = self.act(apply_bn(self.conv(x), self.bn, self.training))
+        return y if residual is None else residual + y
 
 
 class Bottleneck(nn.Module):
-    """Residual bottleneck: x + cv2(cv1(x)) when shapes allow."""
+    """Residual bottleneck: x + cv2(cv1(x)) when shapes allow, the add done
+    inside cv2."""
 
     def __init__(self, c1, c2, shortcut=True, g=1, e=0.5, act="silu", fused=False):
         super().__init__()
@@ -140,8 +172,7 @@ class Bottleneck(nn.Module):
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return self.cv2(self.cv1(x), x if self.add else None)
 
 
 class DWConv(Conv):
@@ -523,7 +554,8 @@ class Proto(nn.Module):
 class Detect(nn.Module):
     """Anchor-based detection head: one 1x1 conv per level, each output
     returned as raw logits (bs, ny, nx, na, no), no = nc + 5 + nm (nm mask
-    coefficients, 0 for detection)."""
+    coefficients, 0 for detection). Each conv's bias is added by kernel K3
+    on the card wherever autograd needs no gradient."""
 
     def __init__(self, nc, anchors, ch, nm=0):
         super().__init__()
@@ -536,7 +568,10 @@ class Detect(nn.Module):
     def forward(self, xs):
         outs = []
         for conv, x in zip(self.m, xs):
-            y = conv(x)
+            if eager_inference(x, conv):
+                y = conv_with_epilogue(x, conv, "identity")
+            else:
+                y = conv(x)
             b, _, ny, nx = y.shape
             # channels_last storage is (b, ny, nx, na*no): a view, no copy
             outs.append(y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no))
